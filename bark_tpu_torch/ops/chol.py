@@ -5,11 +5,14 @@ batch of SPD matrices A (..., BK, BK) it returns ``(L, E)`` with
 ``A = L L^T`` and ``E = L^-1``, both lower-triangular. The kernel is
 ``csrc/chol_inv.cu`` (see its header for the design); this module validates
 the arguments, allocates the outputs and launches it on the current stream.
-``ops.linalg.blocked_cholesky`` builds larger factorizations from it.
+The kernel takes any BK <= 256 in one launch, so every dense-tier
+factorization is one call; ``ops.linalg.blocked_cholesky`` builds larger
+ones from 256-blocks.
 
-A matrix that is not positive definite yields NaN in L and E on both paths
-(the reference's ``jnp.linalg.cholesky`` does the same), so a sampler MLL
-through it is NaN and the MH step rejects.
+A matrix that is not positive definite (a pivot <= 0 or NaN) yields NaN over
+all of its L and E on both paths, and leaves the other matrices of the batch
+alone (the reference's ``jnp.linalg.cholesky`` gives NaN too), so a sampler
+MLL through it is NaN and the MH step rejects.
 
 A tensor on the CPU takes :func:`chol_inv_plain`; a CUDA tensor always takes
 the kernel, and a kernel that fails to build or launch raises.
@@ -21,7 +24,7 @@ import torch
 
 from bark_tpu_torch.ops import _build
 
-MAX_BLOCK = 128  # largest BK the kernel takes (its shared-memory budget)
+MAX_BLOCK = 256  # largest BK the kernel takes (its shared-memory budget)
 
 
 def chol_inv_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +65,7 @@ chol_inv_cuda.launches = 0  # kernel launches, for the chip check of the main pa
 
 
 def chol_inv(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(L, L^-1)`` of SPD matrices ``a`` (..., BK, BK), BK <= 128 on CUDA.
+    """``(L, L^-1)`` of SPD matrices ``a`` (..., BK, BK), BK <= 256 on CUDA.
 
     CUDA tensors go through the kernel, CPU tensors through
     :func:`chol_inv_plain`.

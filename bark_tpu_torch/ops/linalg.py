@@ -2,9 +2,10 @@
 
 Counterpart of the parts of ``bark_tpu/ops/linalg.py`` the dense-tier
 sampler uses. Every factorization goes through the batched
-Cholesky-with-inverse kernel (``ops.chol``, K2): directly for N <= 128, and
-for larger N as the diagonal blocks of :func:`blocked_cholesky`, whose
-panels and trailing updates are ``torch.matmul`` as in the reference.
+Cholesky-with-inverse kernel (``ops.chol``, K2): in one launch for N <= 256,
+which covers the whole dense tier, and above that as the diagonal blocks of
+:func:`blocked_cholesky`, whose panels and trailing updates are
+``torch.matmul`` as in the reference.
 
 Precision: the reference runs its MLL-critical products at full float32
 (``MM_PRECISION = "highest"``) because reduced-precision matmuls biased the
@@ -75,8 +76,10 @@ def blocked_cholesky(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Right-looking blocked Cholesky with inverse: ``(L, L^-1)`` of K.
 
-    K is (..., N, N). For N <= ``block`` this is one K2 call. Above, K is
-    padded with an identity block to a multiple of ``block`` -- inert:
+    K is (..., N, N). For N <= ``block`` (256, the kernel's limit) this is
+    one K2 call, which blocks inside the kernel; that is every dense-tier N.
+    Above, K is padded with an identity block to a multiple of ``block`` --
+    inert:
     blockdiag(K, I) factors to blockdiag(L, I) -- the diagonal blocks are
     factored by K2, which also returns their inverses, so each panel is the
     product ``off @ Ld^-T`` and the trailing update ``T - Loff Loff^T``

@@ -9,24 +9,33 @@ forest-MCMC sampler, in phases:
 
   1. device: the card's name and power limit (nvidia-smi); full-float32
      matmuls (TF32 off);
-  2. build: nvcc for sm_90a, build seconds and the ptxas report;
+  2. build: nvcc for sm_90a, build seconds and the ptxas report, which
+     must show no register spills;
   3. K1 (leaf-agreement Gram) against its plain version on leaves routed
      through prior forests: exact equality; kernel and plain times;
-  4. K2 (batched Cholesky with inverse) against its plain version on
-     refresh-shaped SPD batches, and the blocked N=200 factorization:
-     |L - L_plain| <= 1e-4 and |E L - I| <= 5e-4; kernel and plain times;
+  4. K2 (batched Cholesky with inverse, one launch for any BK <= 256)
+     against its plain version on refresh-shaped SPD batches (128, n, n),
+     n in {50, 128, 200, 256}: |L - L_plain| <= 1e-4 (2e-4 at n=256, the
+     reference's bound for its blocked path) and |E L - I| <= 5e-4; kernel
+     and plain times at each shape; a zero pivot (a zero row and column)
+     and a negative one (a negated matrix) give NaN over all of that
+     matrix's L and E on both versions, and the rest of the batch stays
+     finite and within the bound;
   5. the slice: TreeFunction(dim=5, m=50, seed=1), 64 chains from empty
      forests, one untimed ``run_bark_sampler`` call (10 samples x 5 steps)
      and one timed call from its last sample, at N=50 and at N=200. Checks:
      finite MLL and noise, a tree-move accept rate strictly in (0, 1), both
-     kernels launched during the timed run, final leaves equal to a fresh
-     routing, carried K^-1 / logdet equal to a plain rebuild (rtol 1e-3 /
-     atol 2e-3 and rtol 1e-4 / atol 1e-3), and one step replayed on the
-     CPU with the plain versions from the same state and draws giving the
-     same accept decisions (up to near-ties, |log u - min(log a, 0)| < 1e-3).
+     kernels launched during the timed run, K2 once per init and refresh
+     (steps + 1 launches: no factorization is blocked on the host), final
+     leaves equal to a fresh routing, carried K^-1 / logdet equal to a
+     plain rebuild (rtol 1e-3 / atol 2e-3 and rtol 1e-4 / atol 1e-3), and
+     one step replayed on the CPU with the plain versions from the same
+     state and draws giving the same accept decisions (up to near-ties,
+     |log u - min(log a, 0)| < 1e-3).
 
 Prints what each phase found, then one JSON line with each kernel's launch
-count, error and times, the nvidia-smi line, and as the last line
+count, error and times (K2's at each shape of phase 4 under "times"), the
+nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
 """
@@ -34,6 +43,7 @@ then non-zero and no result line is printed. Without CUDA it exits 1.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -110,7 +120,7 @@ def main() -> int:
     from bark_tpu_torch.ops import _build
     from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
     from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
-    from bark_tpu_torch.ops.linalg import blocked_cholesky, kernel_matrix
+    from bark_tpu_torch.ops.linalg import kernel_matrix
 
     # --- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -121,6 +131,8 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "bytes stack" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+        spills = re.findall(r"(\d+) bytes spill", line)
+        require(all(int(v) == 0 for v in spills), f"no register spills: {line.strip()}")
 
     # --- data: leaves routed through prior forests -------------------------
     tf = TreeFunction(dim=5, m=SLICE_TREES, function_seed=1)
@@ -183,32 +195,53 @@ def main() -> int:
             ]
         ).contiguous()  # (128, n, n)
 
+    leaves[256] = routed(forests64, 256)
     k2_err = 0.0
     k2_times = {}
-    for n in (50, 128, 200):
+    for n in (50, 128, 200, 256):
         K = spd_batch(n)
         eye = torch.eye(n, device=dev)
-        if n <= 128:
-            name = f"(128,{n},{n})"
-            L, E = chol_inv_cuda(K)
-            run_k, run_p = (lambda: chol_inv_cuda(K)), (lambda: chol_inv_plain(K))
-        else:
-            name = f"(128,{n},{n}) blocked"
-            L, E = blocked_cholesky(K)
-            run_k, run_p = (lambda: blocked_cholesky(K)), (lambda: chol_inv_plain(K))
+        name = f"(128,{n},{n})"
+        bound = 2e-4 if n > 200 else 1e-4
+        L, E = chol_inv_cuda(K)
         Lp, Ep = chol_inv_plain(K)
         torch.cuda.synchronize()
         err_l = (L - Lp).abs().max().item()
         resid = (E @ L - eye).abs().max().item()
         err_e = (E - Ep).abs().max().item()
         k2_err = max(k2_err, err_l)
-        require(err_l <= 1e-4, f"K2 {name}: |L - L_plain| = {err_l} <= 1e-4")
+        require(err_l <= bound, f"K2 {name}: |L - L_plain| = {err_l} <= {bound}")
         require(resid <= 5e-4, f"K2 {name}: |E L - I| = {resid} <= 5e-4")
         require(torch.equal(torch.triu(L, 1), torch.zeros_like(L)), f"K2 {name}: L lower")
-        ms, plain_ms = cuda_ms(torch, run_k), cuda_ms(torch, run_p)
+        require(torch.equal(torch.triu(E, 1), torch.zeros_like(E)), f"K2 {name}: E lower")
+        ms = cuda_ms(torch, lambda: chol_inv_cuda(K))
+        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(K))
         k2_times[name] = (ms, plain_ms)
         log(f"[K2] {name}: |L-L_plain| {err_l:.3e}, |EL-I| {resid:.3e}, "
-            f"|E-E_plain| {err_e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"|E-E_plain| {err_e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"on {smi}")
+        if n in (50, 256):
+            # pivot faults: matrix 3 exactly singular (a zero row and
+            # column), matrix 7 negated; each poisoned whole, no other
+            bad = K.clone()
+            bad[3, n // 2, :] = 0.0
+            bad[3, :, n // 2] = 0.0
+            bad[7] = -bad[7]
+            good = [i for i in range(bad.shape[0]) if i not in (3, 7)]
+            L, E = chol_inv_cuda(bad)
+            Lp, Ep = chol_inv_plain(bad)
+            torch.cuda.synchronize()
+            for which, (l_, e_) in (("kernel", (L, E)), ("plain", (Lp, Ep))):
+                for i in (3, 7):
+                    require(bool(torch.isnan(l_[i]).all() and torch.isnan(e_[i]).all()),
+                            f"K2 {name} {which}: matrix {i} all NaN")
+                require(bool(torch.isfinite(l_[good]).all() and torch.isfinite(e_[good]).all()),
+                        f"K2 {name} {which}: the rest of the batch finite")
+            err_good = (L[good] - Lp[good]).abs().max().item()
+            require(err_good <= bound, f"K2 {name} faults: rest |L - L_plain| {err_good}")
+            log(f"[K2] {name} with a zero and a negative pivot: both matrices all "
+                f"NaN on kernel and plain, the other {len(good)} finite "
+                f"(|L-L_plain| {err_good:.3e})")
 
     # --- 5. the slice ----------------------------------------------------
     launches = {}
@@ -259,6 +292,9 @@ def main() -> int:
         require(0.0 < acc < 1.0, f"N={n}: tree accept rate {acc} in (0, 1)")
         require(counts["gram"] > 0 and counts["chol_inv"] > 0,
                 f"N={n}: both kernels launched on the main path {counts}")
+        require(counts["chol_inv"] == steps + 1,
+                f"N={n}: K2 launched once per init and refresh ({steps + 1}), "
+                f"got {counts['chol_inv']}")
 
         state = run.state
         fresh = route_forest(state.forest, X, ft)
@@ -317,7 +353,9 @@ def main() -> int:
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "chol_inv", "route": "cuda", "source": "bark_tpu_torch/csrc/chol_inv.cu",
          "replaces": "bark_tpu/ops/pallas_chol.py:55", "launches": launches["chol_inv"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "times": {name: {"ms": ms, "plain_ms": plain}
+                   for name, (ms, plain) in k2_times.items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

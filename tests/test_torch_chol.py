@@ -31,7 +31,7 @@ def _spd(rng, g, bk, rank=16, ridge=0.5):
     return (a @ np.swapaxes(a, -1, -2) / rank + ridge * np.eye(bk)).astype(np.float32)
 
 
-@pytest.mark.parametrize("g,bk", [(6, 64), (8, 128), (3, 64)])
+@pytest.mark.parametrize("g,bk", [(6, 64), (8, 128), (3, 64), (2, 200), (2, 256)])
 def test_chol_inv_plain_matches_pallas(g, bk):
     d = _spd(np.random.default_rng(0), g, bk)
     L_ref, E_ref = chol_inv_blocks(jnp.asarray(d), interpret=True)
@@ -56,11 +56,58 @@ def test_chol_inv_not_positive_definite_is_nan():
     assert np.isnan(np.asarray(jnp.linalg.cholesky(jnp.asarray(d[1])))).any()
 
 
+def _break(d, i, fault):
+    """Make matrix i of the batch fail at a pivot: an exactly singular
+    matrix (a zero row and column) or a negated one."""
+    if fault == "zero_row":
+        r = d.shape[-1] // 2
+        d[i, r, :] = 0.0
+        d[i, :, r] = 0.0
+    else:
+        d[i] = -d[i]
+    return d
+
+
+@pytest.mark.parametrize("bk", [16, 200])
+@pytest.mark.parametrize("fault", ["zero_row", "negated"])
+def test_chol_inv_pivot_fault_poisons_whole_matrix(fault, bk):
+    """A pivot <= 0 turns all of that matrix's L and E into NaN, as the
+    reference's Cholesky does, and leaves its neighbours finite; a pivot
+    of exactly 0 (the zero row) counts as a failure too."""
+    d = _break(_spd(np.random.default_rng(2), 3, bk), 1, fault)
+    assert np.isnan(np.asarray(jnp.linalg.cholesky(jnp.asarray(d[1])))).any()
+    for L, E in (chol_inv_plain(torch.as_tensor(d)), chol_inv(torch.as_tensor(d))):
+        assert torch.isnan(L[1]).all() and torch.isnan(E[1]).all()
+        assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(E[[0, 2]]).all()
+
+
+@pytest.mark.parametrize("n,calls", [(50, 1), (200, 1), (256, 1), (300, 2)])
+def test_blocked_cholesky_routing(monkeypatch, n, calls):
+    """Every dense-tier N (up to the kernel's 256) is one K2 call, so the
+    refresh launches the kernel once per factorization; above 256 the
+    factorization is blocked at 256 (two diagonal blocks at N=300)."""
+    from bark_tpu_torch.ops import linalg
+
+    shapes = []
+
+    def counting(a):
+        shapes.append(tuple(a.shape[-2:]))
+        return chol_inv(a)
+
+    monkeypatch.setattr(linalg, "chol_inv", counting)
+    K = torch.as_tensor(_spd(np.random.default_rng(n), 2, n, rank=24))
+    L, _ = linalg.blocked_cholesky(K)
+    assert len(shapes) == calls
+    assert all(s == (min(n, 256),) * 2 for s in shapes)
+    np.testing.assert_allclose(L.numpy(), torch.linalg.cholesky(K).numpy(), atol=2e-4)
+
+
 @pytest.mark.parametrize("n,batch", [(200, (2, 3)), (300, (2,)), (256, (1,))])
 def test_blocked_cholesky_with_identity_padding(n, batch):
-    """N not a multiple of the 128 block is padded with an identity block;
-    L agrees with torch.linalg.cholesky (atol 2e-4, the reference's bound
-    for its blocked path) and E is the inverse of L."""
+    """N <= 256 is one K2 call (the kernel pads inside); N=300 is blocked at
+    256, padded with an identity block to 512. L agrees with
+    torch.linalg.cholesky (atol 2e-4, the reference's bound for its blocked
+    path) and E is the inverse of L."""
     rng = np.random.default_rng(3)
     K = torch.as_tensor(_spd(rng, int(np.prod(batch)), n, rank=24).reshape(*batch, n, n))
     L, E = blocked_cholesky(K)

@@ -9,7 +9,8 @@ imports none and runs without the suite's conftest:
 
 Tolerances: K1 counts integers, so kernel and plain version agree exactly;
 K2 and cuSOLVER order the same float32 sums differently, so L agrees to
-1e-4 and E is an inverse of L to 5e-4 (the bounds of chip_smoke.py, from
+1e-4 (2e-4 through ``blocked_cholesky``, the reference's bound for its
+blocked path) and E is an inverse of L to 5e-4 (the bounds of chip_smoke.py, from
 the reference's tests/ops/test_pallas_chol.py).
 """
 
@@ -83,8 +84,9 @@ def test_gram_kernel_rejects_bad_arguments(dev):
         gram_cuda(leaves, leaves, torch.ones(7, device=dev))
 
 
-@pytest.mark.parametrize("bk", [1, 7, 32, 50, 127, MAX_BLOCK])
+@pytest.mark.parametrize("bk", [1, 7, 32, 33, 50, 127, 128, 129, 200, 255, MAX_BLOCK])
 def test_chol_inv_kernel_matches_plain(dev, bk):
+    """Ragged tiles on both sides of every 32-tile edge, up to BK=256."""
     a = torch.as_tensor(_spd(np.random.default_rng(bk), 5, bk), device=dev)
     before = chol_inv_cuda.launches
     L, E = chol_inv_cuda(a)
@@ -96,31 +98,43 @@ def test_chol_inv_kernel_matches_plain(dev, bk):
     assert torch.equal(torch.tril(L), L) and torch.equal(torch.tril(E), E)
 
 
-def test_chol_inv_kernel_not_positive_definite_is_nan(dev):
-    """A non-positive pivot poisons that matrix only, as on the CPU path."""
-    d = _spd(np.random.default_rng(1), 3, 16)
-    d[1] = -d[1]
-    L, E = chol_inv_cuda(torch.as_tensor(d, device=dev))
+@pytest.mark.parametrize("bk", [16, 200])
+@pytest.mark.parametrize("fault", ["zero_row", "negated"])
+def test_chol_inv_kernel_not_positive_definite_is_nan(dev, fault, bk):
+    """A pivot <= 0 (an exactly singular matrix with a zero row and column,
+    or a negated one) poisons all of that matrix's L and E, as the plain
+    version does, and no other matrix of the batch."""
+    d = _spd(np.random.default_rng(1), 3, bk)
+    if fault == "zero_row":
+        d[1, bk // 2, :] = 0.0
+        d[1, :, bk // 2] = 0.0
+    else:
+        d[1] = -d[1]
+    a = torch.as_tensor(d, device=dev)
+    L, E = chol_inv_cuda(a)
+    Lp, Ep = chol_inv_plain(a)
     torch.cuda.synchronize()
-    assert torch.isnan(torch.diagonal(L[1])).all() and torch.isnan(torch.diagonal(E[1])).all()
+    assert torch.isnan(L[1]).all() and torch.isnan(E[1]).all()
+    assert torch.isnan(Lp[1]).all() and torch.isnan(Ep[1]).all()
     assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(E[[0, 2]]).all()
+    assert (L[[0, 2]] - Lp[[0, 2]]).abs().max().item() <= 1e-4
 
 
 def test_chol_inv_kernel_rejects_bad_arguments(dev):
-    with pytest.raises(ValueError, match="BK=129"):
+    with pytest.raises(ValueError, match=f"BK={MAX_BLOCK + 1}"):
         chol_inv_cuda(torch.eye(MAX_BLOCK + 1, device=dev)[None])
     with pytest.raises(ValueError, match="float32"):
         chol_inv_cuda(torch.eye(4, device=dev, dtype=torch.float64)[None])
 
 
-@pytest.mark.parametrize("n", [200, 255])
-def test_blocked_cholesky_on_the_card(dev, n):
-    """Two 128-blocks through the kernel, panels by matmul (the dense tier's
-    128 < N < 256)."""
+@pytest.mark.parametrize("n,launches", [(200, 1), (255, 1), (300, 2)])
+def test_blocked_cholesky_on_the_card(dev, n, launches):
+    """The dense tier's N (up to 256) is one launch; N=300 is two 256-blocks
+    through the kernel with panels by matmul."""
     K = torch.as_tensor(_spd(np.random.default_rng(n), 4, n, rank=24), device=dev)
     before = chol_inv_cuda.launches
     L, E = blocked_cholesky(K)
     torch.cuda.synchronize()
-    assert chol_inv_cuda.launches == before + 2
+    assert chol_inv_cuda.launches == before + launches
     assert (L - torch.linalg.cholesky(K)).abs().max().item() <= 2e-4
     assert (E @ L - torch.eye(n, device=dev)).abs().max().item() <= 5e-4

@@ -52,7 +52,7 @@ REPO = Path(__file__).resolve().parents[1]
 NUM_TREES = 8
 NUM_CHAINS = 2
 NEAR_TIE = 1e-3
-# case -> (N, steps); N=150 runs the blocked (two 128-block) factorization
+# case -> (N, steps); N=150 is a ragged dense-tier N above 128 (one K2 call)
 CASES = {"n20": (20, 3), "n150": (150, 1)}
 NOISE_FIELDS = ("u_move", "g_node", "u_feat", "u_cat", "u_int", "u_cont", "u_accept")
 
