@@ -47,26 +47,40 @@ def model_from_reference(model, device=None) -> BARKModel:
 
 
 def chain_state_from_reference(state, device=None) -> ChainState:
-    """A reference dense-tier ChainState (its KernState carries K_inv and
-    K_logdet; the K slot and the subspace placeholder are not read)."""
+    """A reference ChainState of either tier (the subspace placeholder is
+    not read).
+
+    Dense tier: its KernState carries K_inv and K_logdet. Leaf tier: K_inv
+    is a zero-size placeholder and the K slot holds the factor L of A, the
+    port's ``KernState.L`` (a dict may name it ``K`` or ``L``; without a
+    non-empty ``K_inv`` it reads as the leaf tier).
+    """
     f32 = torch.float32
     kern = _get(state, "kern")
+    fields = {
+        k: np.asarray(v) for k, v in (kern if isinstance(kern, dict) else kern._asdict()).items()
+    }
+    K_logdet = _tensor(fields["K_logdet"], f32, device)
+    if fields.get("K_inv", np.empty(0)).size:
+        kern = KernState(K_inv=_tensor(fields["K_inv"], f32, device), K_logdet=K_logdet)
+    else:
+        L = fields["L"] if "L" in fields else fields["K"]
+        kern = KernState(K_inv=None, K_logdet=K_logdet, L=_tensor(L, f32, device))
     return ChainState(
         forest=forest_from_reference(_get(state, "forest"), device),
         leaves=_tensor(_get(state, "leaves"), torch.int32, device),
         noise=_tensor(_get(state, "noise"), f32, device),
         scale=_tensor(_get(state, "scale"), f32, device),
-        kern=KernState(
-            K_inv=_tensor(_get(kern, "K_inv"), f32, device),
-            K_logdet=_tensor(_get(kern, "K_logdet"), f32, device),
-        ),
+        kern=kern,
         mll=_tensor(_get(state, "mll"), f32, device),
     )
 
 
 def to_numpy(obj):
     """A port object (Forest, BARKModel, ChainState, ...) as nested dicts of
-    numpy arrays keyed by field name, the layout the functions above read."""
+    numpy arrays keyed by field name, the layout the functions above read
+    (a field that is None, such as the other tier's kernel carry, is left
+    out)."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
-    return {k: to_numpy(v) for k, v in obj._asdict().items()}
+    return {k: to_numpy(v) for k, v in obj._asdict().items() if v is not None}

@@ -11,7 +11,10 @@ batch (chains, samples). Node records mirror the reference:
     the reference names as the CPU/GPU choice (``route_forest_auto``);
   - the agreement Gram counts, for each pair of points, the trees in which
     they share a leaf, divided by ``m``. It runs through the hand-written
-    CUDA kernel of :mod:`bark_tpu_torch.ops.gram` on the card.
+    CUDA kernel of :mod:`bark_tpu_torch.ops.gram` on the card;
+  - the compact leaf indicator Z (:func:`indicator_from_targets`) packs
+    each tree's active leaves into columns, so that ``Z Z^T`` is ``m``
+    times that Gram; the sampler's leaf tier works with Z instead.
 """
 
 from __future__ import annotations
@@ -166,6 +169,63 @@ def route_forest(
     """Route data through every tree: fields ``(..., m, node_limit)`` ->
     leaf indices ``(..., N, m)`` (int32)."""
     return route_tree(forest, X, feat_types, max_depth).transpose(-1, -2)
+
+
+def leaf_rank_targets(
+    forest: Forest,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-tree dense leaf ranks ``(tmask, ranks, counts)``.
+
+    ``tmask`` (..., m, node_limit) marks the active leaves; ``ranks`` is each
+    slot's node-order rank among its tree's active leaves (junk at other
+    slots: mask with ``tmask``); ``counts`` (..., m) is each tree's leaf
+    count. The first stage of every compact-indicator packing.
+    """
+    tmask = forest.active & forest.is_leaf
+    ranks = torch.cumsum(tmask, dim=-1, dtype=torch.int32) - 1
+    counts = tmask.sum(-1, dtype=torch.int32)
+    return tmask, ranks, counts
+
+
+def indicator_from_targets(
+    leaves: torch.Tensor, target: torch.Tensor, out_dim: int
+) -> torch.Tensor:
+    """(..., B, out_dim) float32 0/1 indicators: row i lights, for each tree
+    j, column ``target[..., j, leaves[..., i, j]]``.
+
+    ``leaves`` is (..., B, m), ``target`` (..., m, node_limit). Targets >=
+    ``out_dim`` project to nothing. Built by direct indexing, one write per
+    (row, tree); the (B, m * node_limit) one-hot is never formed. Live
+    targets of one row are distinct (each tree owns its own columns), so the
+    accumulation only ever adds one 1 to a column; an out-of-range target
+    is clamped onto the last column and adds 0 there.
+    """
+    *batch, b, m = leaves.shape
+    node_limit = target.shape[-1]
+    slot = leaves.long() + node_limit * torch.arange(m, device=leaves.device)
+    flat = target.reshape(*batch, 1, m * node_limit).expand(*batch, b, m * node_limit)
+    t = torch.gather(flat, -1, slot)  # (..., B, m)
+    out = torch.zeros((*batch, b, out_dim), dtype=torch.float32, device=leaves.device)
+    live = (t < out_dim).to(torch.float32)
+    return out.scatter_add_(-1, t.clamp(max=out_dim - 1).long(), live)
+
+
+def compact_leaf_indicator(
+    forest: Forest, leaves: torch.Tensor, max_leaves: int
+) -> torch.Tensor:
+    """(..., B, m * max_leaves) 0/1 leaf indicators with per-tree dense ranks.
+
+    Tree j's active leaves take ranks 0..L_j-1 in node order inside the
+    block ``[j * max_leaves, (j + 1) * max_leaves)``. With ``max_leaves =
+    (node_limit + 1) // 2`` (a binary tree's leaf cap) the packing is
+    injective for any forest, so ``Z Z^T`` is ``m`` times the agreement Gram.
+    """
+    m = forest.num_trees
+    r = m * max_leaves
+    tmask, ranks, _ = leaf_rank_targets(forest)
+    base = max_leaves * torch.arange(m, dtype=torch.int32, device=ranks.device)[:, None]
+    target = torch.where(tmask, base + ranks, r)
+    return indicator_from_targets(leaves, target, r)
 
 
 def pack_forest(forest: Forest) -> torch.Tensor:

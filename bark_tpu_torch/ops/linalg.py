@@ -86,6 +86,11 @@ def blocked_cholesky(
     (as ``bark_tpu.ops.linalg.blocked_cholesky(impl="pallas")``). The
     inverse factor is assembled by block forward substitution,
     ``E_ij = -E_ii sum_k L_ik E_kj``: matmuls only, no triangular solve.
+
+    A matrix that fails at a pivot of any diagonal block gets NaN over all
+    of its L and E, as on the one-launch path; the rest of the batch is
+    left alone. (K2 poisons the failed block whole, and the blocks after it
+    inherit the NaN, but the blocks before it would stay finite.)
     """
     n = K.shape[-1]
     if n <= block:
@@ -120,13 +125,14 @@ def blocked_cholesky(
             Eb[i][j] = -(Ed[i] @ acc)
 
     zeros = torch.zeros((*batch, block, block), dtype=K.dtype, device=K.device)
+    failed = torch.stack([torch.isnan(e[..., 0, 0]) for e in Ed]).any(0)[..., None, None]
 
     def assemble(blocks):
         rows = [
             torch.cat([blocks[i][j] if j <= i else zeros for j in range(nb)], -1)
             for i in range(nb)
         ]
-        return torch.cat(rows, -2)[..., :n, :n]
+        return torch.where(failed, torch.nan, torch.cat(rows, -2)[..., :n, :n])
 
     return assemble(Lb), assemble(Eb)
 

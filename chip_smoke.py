@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, builds the port's CUDA kernels from
-``bark_tpu_torch/csrc`` and drives its main path, the dense-tier
-forest-MCMC sampler, in phases:
+``bark_tpu_torch/csrc`` and drives its main path, the forest-MCMC sampler
+in both of its tiers, in phases:
 
   1. device: the card's name and power limit (nvidia-smi); full-float32
      matmuls (TF32 off);
@@ -20,7 +20,16 @@ forest-MCMC sampler, in phases:
      and plain times at each shape; a zero pivot (a zero row and column)
      and a negative one (a negated matrix) give NaN over all of that
      matrix's L and E on both versions, and the rest of the batch stays
-     finite and within the bound;
+     finite and within the bound. Then leaf-shaped batches A = Z^T Z +
+     (nu/gamma) I (Z the compact leaf indicator of prior forests routed at
+     N=1024): K2 at (128, 256, 256) for nu/gamma in {5, 0.05}, and
+     ``blocked_cholesky`` (two K2 launches, host-blocked at 256) at
+     (128, 384, 384) and (128, 512, 512), against the plain version with
+     the relative bound |L - L_plain| / max |L_plain| <= 5e-4 (float32
+     against float64 gives up to 6e-5 on such batches at nu/gamma = 0.05)
+     and |E L - I| <= 5e-4; on the blocked path a zero pivot in the second
+     block, one in the first and a negated matrix each poison that whole
+     matrix on both versions;
   5. the slice: TreeFunction(dim=5, m=50, seed=1), 64 chains from empty
      forests, one untimed ``run_bark_sampler`` call (10 samples x 5 steps)
      and one timed call from its last sample, at N=50 and at N=200. Checks:
@@ -31,10 +40,23 @@ forest-MCMC sampler, in phases:
      plain rebuild (rtol 1e-3 / atol 2e-3 and rtol 1e-4 / atol 1e-3), and
      one step replayed on the CPU with the plain versions from the same
      state and draws giving the same accept decisions (up to near-ties,
-     |log u - min(log a, 0)| < 1e-3).
+     |log u - min(log a, 0)| < 1e-3);
+  6. the leaf slice: the same configuration at N=1024 (leaf budget R=256,
+     one K2 launch per factorization) and N=4096 (R=384, two), which
+     ``auto`` resolves to the leaf tier (coefficient-space move scan with
+     the capacity guard, leaf-space refresh). Checks: finite MLL, a
+     tree-move accept rate in (0, 1), every chain's leaf total <= R, K2
+     launched (steps + 1) times per 256-block and K1 not at all, final
+     leaves equal to a fresh routing, the carried factor L of A and logdet
+     equal to a plain rebuild from a fresh Z (relative 5e-4; rtol 1e-4 /
+     atol 1e-3); at N=1024, Z Z^T equal to m times the plain Gram, each
+     chain's MLL equal to the dense MLL computed in float64 from
+     gamma Z Z^T + nu I (|diff| <= 1e-4 |mll| + 1e-3), and one step
+     replayed on the CPU deciding alike up to near-ties.
 
 Prints what each phase found, then one JSON line with each kernel's launch
-count, error and times (K2's at each shape of phase 4 under "times"), the
+count on the N=50 run and on each path ("launches_by_path"), error and
+times (K2's at each shape of phase 4 under "times"), the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
@@ -53,7 +75,11 @@ import numpy as np
 
 SLICE_CHAINS = 64
 SLICE_TREES = 50
+DENSE_NS = (50, 200)
+LEAF_NS = (1024, 4096)
+LEAF_CHECK_N = 1024  # the leaf size with the float64 dense MLL and the CPU replay
 NEAR_TIE = 1e-3
+REL_BOUND = 5e-4  # |L - L_plain| / max |L_plain| on leaf-shaped A
 
 
 def log(msg: str) -> None:
@@ -81,6 +107,51 @@ def cuda_ms(torch, fn, reps: int = 25, inner: int = 10, warmup: int = 5) -> floa
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def rel_err(torch, got, want) -> float:
+    """Largest |got - want| / max |want| over the matrices of a batch."""
+    num = (got - want).abs().amax((-2, -1))
+    return (num / want.abs().amax((-2, -1))).max().item()
+
+
+def replay_on_cpu(torch, tag, state, X, y, bounds, ft, params, num_trees):
+    """One step on the card and on the CPU (plain versions) from the same
+    state and draws: each chain decides every move alike, or parts at a
+    near-tie (|log u - min(log a, 0)| < NEAR_TIE) after which it is not
+    compared further."""
+    from bark_tpu_torch.fitting.sampler import draw_step, step_with_info
+
+    chains = state.noise.shape[0]
+    draws = draw_step(torch.Generator().manual_seed(7), chains, params)
+    _, dev_info = step_with_info(state, X, y, bounds, ft, params, draws.to(X.device))
+    _, cpu_info = step_with_info(
+        state.to("cpu"), X.cpu(), y.cpu(), bounds.cpu(), ft.cpu(), params, draws,
+    )
+    # a chain's moves are sequential: after its first differing decision
+    # (which must be a near-tie) the two runs of that chain part ways
+    log_u = torch.log(draws.proposal.u_accept)
+    gap = (log_u - torch.clamp_max(cpu_info.tree_log_alpha, 0.0)).abs()
+    differ = dev_info.tree_accepts.cpu() != cpu_info.tree_accepts
+    hyper_gap = (torch.log(draws.u_hyper)
+                 - torch.clamp_max(cpu_info.hyper_log_alpha, 0.0)).abs()
+    hyper_differ = dev_info.hyper_accept.cpu() != cpu_info.hyper_accept
+    parted = 0
+    for c in range(chains):
+        js = torch.nonzero(differ[c]).flatten()
+        if js.numel():
+            parted += 1
+            j = int(js[0])
+            require(gap[c, j].item() < NEAR_TIE,
+                    f"{tag}: chain {c} move {j} decided differently on the card "
+                    f"and the CPU away from a near-tie (gap {gap[c, j].item()})")
+        elif hyper_differ[c]:
+            require(hyper_gap[c].item() < NEAR_TIE,
+                    f"{tag}: chain {c} noise move decided differently away "
+                    f"from a near-tie (gap {hyper_gap[c].item()})")
+    log(f"[{tag}] card vs CPU replay of one step: {parted} of {chains} chains "
+        f"parted at a near-tie, the rest decided all {num_trees} tree moves "
+        f"alike; noise moves differ in {int(hyper_differ.sum())} chains")
 
 
 def main() -> int:
@@ -111,16 +182,17 @@ def main() -> int:
     from bark_tpu_torch.fitting.params import SamplerParams
     from bark_tpu_torch.fitting.sampler import (
         BARKModel,
-        draw_step,
+        _leaf_budget,
+        _leaf_Z,
         run_bark_sampler,
         run_chain,
-        step_with_info,
     )
+    from bark_tpu_torch.fitting.traversal import terminal_mask
     from bark_tpu_torch.forest import Forest, create_empty_forest, route_forest
     from bark_tpu_torch.ops import _build
-    from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
     from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
-    from bark_tpu_torch.ops.linalg import kernel_matrix
+    from bark_tpu_torch.ops.linalg import JITTER, blocked_cholesky, kernel_matrix
 
     # --- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -243,9 +315,83 @@ def main() -> int:
                 f"NaN on kernel and plain, the other {len(good)} finite "
                 f"(|L-L_plain| {err_good:.3e})")
 
-    # --- 5. the slice ----------------------------------------------------
+    # K2 and its blocked path on leaf-shaped A = Z^T Z + (nu/gamma) I
+    forests128 = prior_forests(2 * SLICE_CHAINS)
+    leaves_leaf = routed(forests128, LEAF_CHECK_N)
+    ones = torch.ones(LEAF_CHECK_N, device=dev)
+
+    def leaf_A(budget: int, ratio: float) -> torch.Tensor:
+        Z, _ = _leaf_Z(forests128, leaves_leaf, budget, ones)
+        eye = torch.eye(budget, device=dev)
+        return (Z.transpose(1, 2) @ Z + ratio * eye).contiguous()  # (128, R, R)
+
+    def check_factor(name, L, E, Lp, n, rows=slice(None)):
+        err = rel_err(torch, L[rows], Lp[rows])
+        resid = (E[rows] @ L[rows] - torch.eye(n, device=dev)).abs().max().item()
+        require(err <= REL_BOUND, f"K2 {name}: |L - L_plain| / max |L_plain| = {err} <= {REL_BOUND}")
+        require(resid <= 5e-4, f"K2 {name}: |E L - I| = {resid} <= 5e-4")
+        require(torch.equal(torch.tril(L[rows]), L[rows]), f"K2 {name}: L lower")
+        return err, resid
+
+    k2_leaf_err = 0.0
+    for ratio in (5.0, 0.05):
+        A = leaf_A(MAX_BLOCK, ratio)
+        name = f"({A.shape[0]},{MAX_BLOCK},{MAX_BLOCK}) leaf nu/gamma={ratio}"
+        L, E = chol_inv_cuda(A)
+        Lp, _ = chol_inv_plain(A)
+        torch.cuda.synchronize()
+        err, resid = check_factor(name, L, E, Lp, MAX_BLOCK)
+        k2_leaf_err = max(k2_leaf_err, err)
+        ms = cuda_ms(torch, lambda: chol_inv_cuda(A))
+        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(A))
+        k2_times[name] = (ms, plain_ms)
+        log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}")
+    for r in (384, 512):
+        A = leaf_A(r, 0.05)
+        name = f"({A.shape[0]},{r},{r}) leaf blocked"
+        before = chol_inv_cuda.launches
+        L, E = blocked_cholesky(A)
+        Lp, _ = chol_inv_plain(A)
+        torch.cuda.synchronize()
+        blocks = chol_inv_cuda.launches - before
+        require(blocks == 2, f"K2 {name}: two launches (256-blocks), got {blocks}")
+        err, resid = check_factor(name, L, E, Lp, r)
+        k2_leaf_err = max(k2_leaf_err, err)
+        ms = cuda_ms(torch, lambda: blocked_cholesky(A))
+        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(A))
+        k2_times[name] = (ms, plain_ms)
+        # pivot faults: a zero row and column in the second diagonal block
+        # (matrix 3) and in the first (matrix 5), a negated matrix (7)
+        bad = A.clone()
+        for i, row in ((3, r - 40), (5, 60)):
+            bad[i, row, :] = 0.0
+            bad[i, :, row] = 0.0
+        bad[7] = -bad[7]
+        good = [i for i in range(bad.shape[0]) if i not in (3, 5, 7)]
+        L, E = blocked_cholesky(bad)
+        Lp, Ep = chol_inv_plain(bad)
+        torch.cuda.synchronize()
+        for which, (l_, e_) in (("blocked", (L, E)), ("plain", (Lp, Ep))):
+            for i in (3, 5, 7):
+                require(bool(torch.isnan(l_[i]).all() and torch.isnan(e_[i]).all()),
+                        f"K2 {name} {which}: matrix {i} all NaN")
+            require(bool(torch.isfinite(l_[good]).all() and torch.isfinite(e_[good]).all()),
+                    f"K2 {name} {which}: the rest of the batch finite")
+        err_good, _ = check_factor(f"{name} faults", L, E, Lp, r, good)
+        log(f"[K2] {name}: 2 launches; |L-L_plain|/max|L| {err:.3e}, |EL-I| "
+            f"{resid:.3e}; blocked {ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}; "
+            f"zero pivots in blocks 2 and 1 and a negated matrix all NaN on both, "
+            f"the other {len(good)} within the bound ({err_good:.3e})")
+
+    # --- 5. the dense slice, 6. the leaf slice -----------------------------
     launches = {}
-    for n in (50, 200):
+    rates = {}
+
+    def drive(n: int):
+        """One untimed and one timed call of the sampler at N=n (64 chains
+        from empty forests); returns the timed run, the launches during it
+        and the data."""
         X_np = tf.domain.sample(n, np.random.default_rng(0))
         y_np = tf.f(X_np)
         y_np = (y_np - y_np.mean()) / y_np.std()
@@ -278,10 +424,9 @@ def main() -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
-        if n == 50:
-            launches = counts
         steps = params.num_samples * params.steps_per_sample
         rate = SLICE_CHAINS * steps / dt
+        rates[n] = rate
         acc = run.tree_accept_rate.mean().item()
         log(f"[slice N={n}] untimed call {cold:.2f} s; timed call {steps} steps x "
             f"{SLICE_CHAINS} chains in {dt:.3f} s = {rate:.1f} chain-steps/s "
@@ -290,6 +435,11 @@ def main() -> int:
         require(bool(torch.isfinite(run.mll).all()), f"N={n}: finite MLL")
         require(bool(torch.isfinite(run.samples.noise).all()), f"N={n}: finite noise")
         require(0.0 < acc < 1.0, f"N={n}: tree accept rate {acc} in (0, 1)")
+        return run, counts, steps, params, X, y
+
+    for n in DENSE_NS:
+        run, counts, steps, params, X, y = drive(n)
+        launches[f"dense N={n}"] = counts
         require(counts["gram"] > 0 and counts["chol_inv"] > 0,
                 f"N={n}: both kernels launched on the main path {counts}")
         require(counts["chol_inv"] == steps + 1,
@@ -313,47 +463,77 @@ def main() -> int:
             f"{(state.kern.K_inv - K_inv).abs().max().item():.3e}, |logdet - rebuild| "
             f"{(state.kern.K_logdet - logdet).abs().max().item():.3e}")
 
-        # one step on the card and on the CPU from the same state and draws
-        draws = draw_step(torch.Generator().manual_seed(7), SLICE_CHAINS, params)
-        dev_state, dev_info = step_with_info(state, X, y, bounds, ft, params, draws.to(dev))
-        cpu_state, cpu_info = step_with_info(
-            state.to("cpu"), X.cpu(), y.cpu(), bounds.cpu(), ft.cpu(), params, draws,
-        )
-        # a chain's moves are sequential: after its first differing decision
-        # (which must be a near-tie) the two runs of that chain part ways
-        log_u = torch.log(draws.proposal.u_accept)
-        gap = (log_u - torch.clamp_max(cpu_info.tree_log_alpha, 0.0)).abs()
-        differ = dev_info.tree_accepts.cpu() != cpu_info.tree_accepts
-        hyper_gap = (torch.log(draws.u_hyper)
-                     - torch.clamp_max(cpu_info.hyper_log_alpha, 0.0)).abs()
-        hyper_differ = dev_info.hyper_accept.cpu() != cpu_info.hyper_accept
-        parted = 0
-        for c in range(SLICE_CHAINS):
-            js = torch.nonzero(differ[c]).flatten()
-            if js.numel():
-                parted += 1
-                j = int(js[0])
-                require(gap[c, j].item() < NEAR_TIE,
-                        f"N={n}: chain {c} move {j} decided differently on the card "
-                        f"and the CPU away from a near-tie (gap {gap[c, j].item()})")
-            elif hyper_differ[c]:
-                require(hyper_gap[c].item() < NEAR_TIE,
-                        f"N={n}: chain {c} noise move decided differently away "
-                        f"from a near-tie (gap {hyper_gap[c].item()})")
-        log(f"[slice N={n}] card vs CPU replay of one step: {parted} of "
-            f"{SLICE_CHAINS} chains parted at a near-tie, the rest decided all "
-            f"{SLICE_TREES} tree moves alike; noise moves differ in "
-            f"{int(hyper_differ.sum())} chains")
+        replay_on_cpu(torch, f"slice N={n}", state, X, y, bounds, ft, params, SLICE_TREES)
 
+    for n in LEAF_NS:
+        run, counts, steps, params, X, y = drive(n)
+        launches[f"leaf N={n}"] = counts
+        budget = _leaf_budget(params, n)
+        blocks = -(-budget // MAX_BLOCK)
+        require(counts["gram"] == 0, f"N={n}: the leaf tier builds no Gram (K1 {counts['gram']})")
+        require(counts["chol_inv"] == blocks * (steps + 1),
+                f"N={n}: K2 launched {blocks} time(s) per init and refresh at R={budget} "
+                f"({blocks * (steps + 1)}), got {counts['chol_inv']}")
+        state = run.state
+        require(state.kern.K_inv is None and state.kern.L.shape == (SLICE_CHAINS, budget, budget),
+                f"N={n}: the leaf tier carries the (R, R) factor, R={budget}")
+        totals = terminal_mask(state.forest).sum((1, 2))
+        require(bool((totals <= budget).all()),
+                f"N={n}: every chain's leaf total <= R={budget} (max {int(totals.max())})")
+        fresh = route_forest(state.forest, X, ft)
+        require(torch.equal(fresh, state.leaves), f"N={n}: leaves equal a fresh routing")
+        # rebuild with the plain versions from a fresh Z
+        Z, _ = _leaf_Z(state.forest, fresh, budget, torch.ones(n, device=dev))
+        nu, gamma = JITTER + state.noise, state.scale / SLICE_TREES
+        eye = torch.eye(budget, device=dev)
+        Lr = torch.linalg.cholesky(Z.transpose(1, 2) @ Z + (nu / gamma)[:, None, None] * eye)
+        logdet = (n * torch.log(nu) + budget * torch.log(gamma / nu)
+                  + 2.0 * torch.log(torch.diagonal(Lr, dim1=-2, dim2=-1)).sum(-1))
+        err = rel_err(torch, state.kern.L, Lr)
+        require(err <= REL_BOUND, f"N={n}: |L - rebuild| / max |L| = {err} <= {REL_BOUND}")
+        torch.testing.assert_close(state.kern.K_logdet, logdet, rtol=1e-4, atol=1e-3)
+        log(f"[slice N={n}] leaf tier, R={budget}: leaf totals {int(totals.min())}-"
+            f"{int(totals.max())}; leaves == fresh routing; |L - rebuild|/max|L| "
+            f"{err:.3e}, |logdet - rebuild| "
+            f"{(state.kern.K_logdet - logdet).abs().max().item():.3e}")
+        if n != LEAF_CHECK_N:
+            continue
+        # the two tiers compute one likelihood: Z Z^T is m times the plain
+        # Gram, and the leaf-space MLL is the dense one, here in float64
+        ZZt = Z @ Z.transpose(1, 2)
+        require(torch.equal(ZZt, torch.round(gram_plain(fresh, fresh) * SLICE_TREES)),
+                f"N={n}: Z Z^T == m * gram")
+        K = gamma.double()[:, None, None] * ZZt.double() + torch.diag_embed(
+            nu.double()[:, None].expand(-1, n))
+        Lk = torch.linalg.cholesky(K)
+        yb = y.double()[None, :, None].expand(SLICE_CHAINS, n, 1)
+        z = torch.linalg.solve_triangular(Lk, yb, upper=False)[..., 0]
+        dense = 0.5 * (-(z * z).sum(-1)
+                       - 2.0 * torch.log(torch.diagonal(Lk, dim1=-2, dim2=-1)).sum(-1))
+        diff = (state.mll.double() - dense).abs()
+        require(bool((diff <= 1e-4 * dense.abs() + 1e-3).all()),
+                f"N={n}: leaf MLL equals the dense float64 MLL (max diff {diff.max().item()})")
+        log(f"[slice N={n}] Z Z^T == m * gram; leaf MLL vs dense float64 MLL: max "
+            f"|diff| {diff.max().item():.3e} (|mll| {dense.abs().min().item():.1f}-"
+            f"{dense.abs().max().item():.1f})")
+        replay_on_cpu(torch, f"slice N={n}", state, X, y, bounds, ft, params, SLICE_TREES)
+
+    log(f"[rates] chain-steps/s of the timed call: "
+        f"{json.dumps({f'N={n}': round(r, 1) for n, r in rates.items()})} on {smi}")
     k1_ms, k1_plain = k1_times[f"({SLICE_CHAINS},50,50)"]
     k2_ms, k2_plain = k2_times["(128,50,50)"]
     kernels = [
         {"name": "gram", "route": "cuda", "source": "bark_tpu_torch/csrc/gram.cu",
-         "replaces": "bark_tpu/ops/pallas_gram.py:40", "launches": launches["gram"],
+         "replaces": "bark_tpu/ops/pallas_gram.py:40",
+         "launches": launches[f"dense N={DENSE_NS[0]}"]["gram"],
+         "launches_by_path": {p: c["gram"] for p, c in launches.items()},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "chol_inv", "route": "cuda", "source": "bark_tpu_torch/csrc/chol_inv.cu",
-         "replaces": "bark_tpu/ops/pallas_chol.py:55", "launches": launches["chol_inv"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "replaces": "bark_tpu/ops/pallas_chol.py:55",
+         "launches": launches[f"dense N={DENSE_NS[0]}"]["chol_inv"],
+         "launches_by_path": {p: c["chol_inv"] for p, c in launches.items()},
+         "max_abs_err": k2_err, "max_rel_err_leaf": k2_leaf_err,
+         "ms": k2_ms, "plain_ms": k2_plain,
          "times": {name: {"ms": ms, "plain_ms": plain}
                    for name, (ms, plain) in k2_times.items()}},
     ]

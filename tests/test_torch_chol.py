@@ -81,6 +81,29 @@ def test_chol_inv_pivot_fault_poisons_whole_matrix(fault, bk):
         assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(E[[0, 2]]).all()
 
 
+@pytest.mark.parametrize(
+    "n,fault,row",
+    [(384, "zero_row", 300), (384, "zero_row", 100), (512, "zero_row", 400), (384, "negated", 0)],
+)
+def test_blocked_cholesky_pivot_fault_poisons_whole_matrix(n, fault, row):
+    """Above 256 (the leaf tier's R = 384 and 512, blocked at 256) a pivot
+    failure in any diagonal block, the second one included, turns all of
+    that matrix's L and E into NaN, as the one-launch path does, and the
+    other matrices of the batch still factor to torch.linalg.cholesky's L
+    (atol 2e-4)."""
+    d = _spd(np.random.default_rng(n + row), 3, n, rank=24)
+    if fault == "zero_row":
+        d[1, row, :] = 0.0
+        d[1, :, row] = 0.0
+    else:
+        d[1] = -d[1]
+    L, E = blocked_cholesky(torch.as_tensor(d))
+    assert torch.isnan(L[1]).all() and torch.isnan(E[1]).all()
+    good = torch.as_tensor(d[[0, 2]])
+    assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(E[[0, 2]]).all()
+    np.testing.assert_allclose(L[[0, 2]].numpy(), torch.linalg.cholesky(good).numpy(), atol=2e-4)
+
+
 @pytest.mark.parametrize("n,calls", [(50, 1), (200, 1), (256, 1), (300, 2)])
 def test_blocked_cholesky_routing(monkeypatch, n, calls):
     """Every dense-tier N (up to the kernel's 256) is one K2 call, so the

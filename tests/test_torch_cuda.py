@@ -138,3 +138,29 @@ def test_blocked_cholesky_on_the_card(dev, n, launches):
     assert chol_inv_cuda.launches == before + launches
     assert (L - torch.linalg.cholesky(K)).abs().max().item() <= 2e-4
     assert (E @ L - torch.eye(n, device=dev)).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("n", [384, 512])
+def test_blocked_cholesky_pivot_faults_on_the_card(dev, n):
+    """The leaf tier's R = 384 and 512 (two 256-blocks, two launches): a
+    zero pivot in the second diagonal block, one in the first and a
+    negated matrix each poison all of that matrix's L and E, as the plain
+    version does; the other 125 matrices agree with it."""
+    d = _spd(np.random.default_rng(n), 128, n, rank=24)
+    for i, row in ((3, n - 40), (5, 60)):
+        d[i, row, :] = 0.0
+        d[i, :, row] = 0.0
+    d[7] = -d[7]
+    K = torch.as_tensor(d, device=dev)
+    before = chol_inv_cuda.launches
+    L, E = blocked_cholesky(K)
+    Lp, Ep = chol_inv_plain(K)
+    torch.cuda.synchronize()
+    assert chol_inv_cuda.launches == before + 2
+    good = [i for i in range(128) if i not in (3, 5, 7)]
+    for l_, e_ in ((L, E), (Lp, Ep)):
+        for i in (3, 5, 7):
+            assert torch.isnan(l_[i]).all() and torch.isnan(e_[i]).all()
+        assert torch.isfinite(l_[good]).all() and torch.isfinite(e_[good]).all()
+    assert (L[good] - Lp[good]).abs().max().item() <= 2e-4
+    assert (E[good] @ L[good] - torch.eye(n, device=dev)).abs().max().item() <= 5e-4

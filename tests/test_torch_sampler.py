@@ -21,7 +21,15 @@ kernels, and transcendentals that round differently in the last ulp):
     exp and log1p, one ulp apart between the two packages);
   - MLL and logdet: rtol 1e-4 / atol 1e-3, and K^-1: rtol 1e-3 /
     atol 2e-3, the reference's own maintained-vs-rebuilt tolerances
-    (tests/fitting/test_sampler.py).
+    (tests/fitting/test_sampler.py);
+  - the leaf tier's carried factor L of A = (nu/gamma) I + Z^T Z: within
+    1e-5 of max |L| (entries up to sqrt(N); two float32 Cholesky orderings
+    of the same integer-plus-ridge matrix).
+
+The cases cover both tiers: the dense tier at N=20 and at a ragged N=150;
+the leaf tier pinned (``coeff``/``leaf``) at N=20, resolved from ``auto``
+at N=256 (budget R=128 at m=8), and pinned with ``leaf_budget = m + 2``
+from stumps, where the capacity guard rejects grows at every step.
 """
 
 import os
@@ -36,9 +44,12 @@ import torch
 from bark_tpu_torch.convert import chain_state_from_reference, forest_from_reference
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.proposals import ProposalNoise
+from bark_tpu_torch.fitting.traversal import terminal_mask
 from bark_tpu_torch.fitting.sampler import (
     BARKModel,
+    KernState,
     StepDraws,
+    _leaf_budget,
     _resolve_styles,
     draw_step,
     init_chain_state,
@@ -52,8 +63,17 @@ REPO = Path(__file__).resolve().parents[1]
 NUM_TREES = 8
 NUM_CHAINS = 2
 NEAR_TIE = 1e-3
-# case -> (N, steps); N=150 is a ragged dense-tier N above 128 (one K2 call)
-CASES = {"n20": (20, 3), "n150": (150, 1)}
+LEAF_PINS = {"scan_style": "coeff", "refresh_style": "leaf"}
+# case -> (N, steps, SamplerParams overrides, initial forests); N=150 is a
+# ragged dense-tier N above 128 (one K2 call)
+CASES = {
+    "n20": (20, 3, {}, "prior"),
+    "n150": (150, 1, {}, "prior"),
+    "leaf20": (20, 3, LEAF_PINS, "prior"),
+    "leaf256": (256, 1, {}, "prior"),
+    "cap20": (20, 6, {**LEAF_PINS, "leaf_budget": NUM_TREES + 2}, "stumps"),
+}
+L_BOUND = 1e-5  # |L - L_ref| / max |L_ref| of the leaf tier's factor
 NOISE_FIELDS = ("u_move", "g_node", "u_feat", "u_cat", "u_int", "u_cont", "u_accept")
 
 
@@ -90,15 +110,18 @@ def reference_run(out_path: str) -> None:
         init_chain_state as jax_init,
         step as jax_step,
     )
-    from bark_tpu.forest import pack_forest
+    from bark_tpu.forest import create_empty_forest, pack_forest
 
-    params = JaxParams(num_trees=NUM_TREES)
     out = {}
-    for case, (n, steps) in CASES.items():
+    for case, (n, steps, overrides, start) in CASES.items():
+        params = JaxParams(num_trees=NUM_TREES, **overrides)
         bounds, ft, X, y = (jnp.asarray(a) for a in make_problem(n))
-        forests = sample_forest_prior(
-            jax.random.key(1), NUM_TREES, bounds, ft, num_samples=NUM_CHAINS
-        )
+        if start == "prior":
+            forests = sample_forest_prior(
+                jax.random.key(1), NUM_TREES, bounds, ft, num_samples=NUM_CHAINS
+            )
+        else:
+            forests = create_empty_forest(NUM_TREES, params.node_limit, (NUM_CHAINS,))
         noise0 = jnp.asarray([0.1, 0.3], jnp.float32)
         scale0 = jnp.asarray([1.0, 0.7], jnp.float32)
         init = jax.jit(jax.vmap(
@@ -129,8 +152,8 @@ def reference_run(out_path: str) -> None:
                 out[f"{case}/{tag}/forest.{k}"] = np.asarray(getattr(st.forest, k))
             for k in ("leaves", "noise", "scale", "mll"):
                 out[f"{case}/{tag}/{k}"] = np.asarray(getattr(st, k))
-            out[f"{case}/{tag}/K_inv"] = np.asarray(st.kern.K_inv)
-            out[f"{case}/{tag}/K_logdet"] = np.asarray(st.kern.K_logdet)
+            for k in ("K", "K_inv", "K_logdet"):
+                out[f"{case}/{tag}/{k}"] = np.asarray(getattr(st.kern, k))
 
         for k in FOREST_FIELDS:
             out[f"{case}/forest0.{k}"] = np.asarray(getattr(forests, k))
@@ -177,9 +200,13 @@ def reference(tmp_path_factory):
 def _state_dict(ref, case, tag):
     return {
         "forest": {k: ref[f"{case}/{tag}/forest.{k}"] for k in FOREST_FIELDS},
-        "kern": {k: ref[f"{case}/{tag}/{k}"] for k in ("K_inv", "K_logdet")},
+        "kern": {k: ref[f"{case}/{tag}/{k}"] for k in ("K", "K_inv", "K_logdet")},
         **{k: ref[f"{case}/{tag}/{k}"] for k in ("leaves", "noise", "scale", "mll")},
     }
+
+
+def _params(case):
+    return SamplerParams(num_trees=NUM_TREES, **CASES[case][2])
 
 
 def _inputs(n):
@@ -194,14 +221,19 @@ def _assert_close_state(got, want, what):
     np.testing.assert_allclose(
         got.kern.K_logdet.numpy(), want["kern"]["K_logdet"], rtol=1e-4, atol=1e-3, err_msg=what
     )
-    np.testing.assert_allclose(
-        got.kern.K_inv.numpy(), want["kern"]["K_inv"], rtol=1e-3, atol=2e-3, err_msg=what
-    )
+    if got.kern.L is None:
+        np.testing.assert_allclose(
+            got.kern.K_inv.numpy(), want["kern"]["K_inv"], rtol=1e-3, atol=2e-3, err_msg=what
+        )
+    else:
+        L_ref = want["kern"]["K"]
+        err = np.abs(got.kern.L.numpy() - L_ref).max() / np.abs(L_ref).max()
+        assert err <= L_BOUND, f"{what}: |L - L_ref| / max |L_ref| = {err}"
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_init_chain_state_matches_reference(reference, case):
-    n, _ = CASES[case]
+    n = CASES[case][0]
     X, y, bounds, ft = _inputs(n)
     forest = forest_from_reference(
         {k: reference[f"{case}/forest0.{k}"] for k in FOREST_FIELDS}
@@ -209,8 +241,9 @@ def test_init_chain_state_matches_reference(reference, case):
     state = init_chain_state(
         forest, torch.as_tensor(reference[f"{case}/noise0"]),
         torch.as_tensor(reference[f"{case}/scale0"]), X, y, ft,
-        SamplerParams(num_trees=NUM_TREES), bounds=bounds,
+        _params(case), bounds=bounds,
     )
+    assert (state.kern.L is not None) == ("refresh_style" in CASES[case][2] or n >= 256)
     want = _state_dict(reference, case, "s0")
     np.testing.assert_array_equal(state.leaves.numpy(), want["leaves"])
     _assert_close_state(state, want, f"{case} init")
@@ -218,11 +251,15 @@ def test_init_chain_state_matches_reference(reference, case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_steps_replay_reference(reference, case):
-    """Replay the reference's draws from its converted initial state."""
-    n, steps = CASES[case]
+    """Replay the reference's draws from its converted initial state. In
+    the leaf tier every chain also stays within its leaf budget with a
+    finite MLL at every step (the capacity guard)."""
+    n, steps = CASES[case][:2]
     X, y, bounds, ft = _inputs(n)
-    params = SamplerParams(num_trees=NUM_TREES)
+    params = _params(case)
+    budget = _leaf_budget(params, n)
     state = chain_state_from_reference(_state_dict(reference, case, "s0"))
+    leaf_tier = state.kern.L is not None
     parted = [False] * NUM_CHAINS
     decided = {0: 0, 1: 0}
     for s in range(steps):
@@ -234,6 +271,10 @@ def test_steps_replay_reference(reference, case):
         )
         prev_noise = reference[f"{case}/s{s}/noise"]
         state, info = step_with_info(state, X, y, bounds, ft, params, draws)
+        if leaf_tier:
+            assert state.kern.L.shape == (NUM_CHAINS, budget, budget)
+            assert bool((terminal_mask(state.forest).sum((1, 2)) <= budget).all()), s
+            assert bool(torch.isfinite(state.mll).all()), s
         want = _state_dict(reference, case, f"s{s + 1}")
         codes = get("accept").numpy()
         log_u = torch.log(draws.proposal.u_accept)
@@ -265,12 +306,12 @@ def test_steps_replay_reference(reference, case):
             one = lambda t: t[c : c + 1]  # noqa: E731
             _assert_close_state(
                 type(state)(state.forest, state.leaves, one(state.noise), one(state.scale),
-                            type(state.kern)(one(state.kern.K_inv), one(state.kern.K_logdet)),
+                            KernState(*(None if t is None else one(t) for t in state.kern)),
                             one(state.mll)),
                 {
                     "noise": want["noise"][c : c + 1], "scale": want["scale"][c : c + 1],
                     "mll": want["mll"][c : c + 1],
-                    "kern": {k: want["kern"][k][c : c + 1] for k in ("K_inv", "K_logdet")},
+                    "kern": {k: v[c : c + 1] for k, v in want["kern"].items()},
                 },
                 f"{case} step {s} chain {c}",
             )
@@ -344,7 +385,7 @@ def test_run_chain_state_consistent_with_rebuild():
 @pytest.mark.parametrize(
     "n,kwargs",
     [
-        (256, {}),
+        (256, {"refresh_style": "onesolve"}),
         (50, {"kernel_backend": "chol"}),
         (50, {"scan_style": "lowrank"}),
         (50, {"refresh_style": "pair"}),
@@ -353,7 +394,8 @@ def test_run_chain_state_consistent_with_rebuild():
     ],
 )
 def test_resolve_styles_runs_only_the_dense_default(n, kwargs):
-    """Anything but the dense tier's shipped lowering raises."""
+    """Anything but the two tiers' shipped lowerings raises (a pinned
+    onesolve refresh at N=256 resolves to the lowrank scan)."""
     with pytest.raises(NotImplementedError):
         _resolve_styles(SamplerParams(**kwargs), n)
 
