@@ -386,7 +386,7 @@ def init_chain_state(
         mll = torch.where(total <= budget, mll[:, 0], torch.nan)
         kern = KernState(K_inv=None, K_logdet=K_logdet[:, 0], L=L[:, 0])
     else:
-        gram = gram_from_leaves(leaves, leaves, mask, mask)
+        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
         K_inv, K_logdet = chol_inv_logdet(kernel_matrix(gram, noise, scale))
         mll = masked_mll(K_inv, K_logdet, y, noise, pad_count)
         kern = KernState(K_inv=K_inv, K_logdet=K_logdet)
@@ -694,7 +694,7 @@ def step_with_info(
         # factor both MH branches of the noise move at once; both MLLs come
         # from the factors (z = L^-1 y), and the selected branch's inverse
         # factor gives the carried K^-1 without an N-right-hand-side solve
-        gram = gram_from_leaves(leaves, leaves, mask, mask)
+        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
         K2 = kernel_matrix(gram[:, None], noise2, scale2)  # (C, 2, N, N)
         L2, E2 = blocked_cholesky(K2)
         mll2, logdet2 = _chol_mll(L2, y_flat, noise2, pad_count)

@@ -24,16 +24,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# the reference's forest.gram_from_leaves; counting compares leaf ids
-# directly, so it takes no node_limit (no one-hot over node slots is built)
-from bark_tpu_torch.ops.gram import gram_from_leaves  # noqa: F401
+# the reference's forest.gram_from_leaves; it compares leaf ids directly (no
+# one-hot over node slots is built); node_limit sets its bit-plane count
+from bark_tpu_torch.ops.gram import DEFAULT_NODE_LIMIT, gram_from_leaves  # noqa: F401
 
 # Feature type codes (Cat=0, Int=1, Cont=2), as in the reference.
 FEAT_CAT = 0
 FEAT_INT = 1
 FEAT_CONT = 2
 
-DEFAULT_NODE_LIMIT = 64
 DEFAULT_MAX_DEPTH = 16
 MAX_CATEGORIES = 24
 

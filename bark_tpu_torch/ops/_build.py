@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use the sources are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes`` -- no PyTorch headers, so the build takes seconds.
+(``sm_90a``), one compiler process per source, all started together, and
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes`` -- no PyTorch headers, so the build takes seconds.
 The library lands in ``bark_tpu_torch/_build/`` (listed in ``.gitignore``)
 under a name derived from the sources' content and the flags, so an edit to
 a source rebuilds and an unchanged tree reuses the library. A failed build
@@ -30,13 +31,16 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "bark_gram": (
-        [_vp, _vp, _vp, _ll, _vp, _ll, _vp, _i, _i, _i, _i, _i, _vp], _i
+        [_vp, _ll, _i, _vp, _ll, _i, _vp, _vp, _vp, _vp, _ll, _vp, _ll, _vp,
+         _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
+        _i,
     ),
     "bark_chol_inv": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),
     "bark_error_string": ([_i], ctypes.c_char_p),
@@ -84,7 +88,7 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -102,20 +106,40 @@ def build() -> tuple[Path, float, str]:
     # sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
+    log = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            objs = [str(Path(objdir) / f"{s.stem}.o") for s in srcs]
+            cmds = [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(srcs, objs)
+            ]
+            procs = [
+                subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for c in cmds
+            ]
+            outputs = [p.communicate() for p in procs]  # waits for every one
+            for cmd, p, (stdout, stderr) in zip(cmds, procs, outputs):
+                log.append(stdout + stderr)
+                if p.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+                    )
+            link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, "".join(log)
 
 
 def load_library() -> KernelLibrary:

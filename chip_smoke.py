@@ -12,7 +12,16 @@ in both of its tiers, in phases:
   2. build: nvcc for sm_90a, build seconds and the ptxas report, which
      must show no register spills;
   3. K1 (leaf-agreement Gram) against its plain version on leaves routed
-     through prior forests: exact equality; kernel and plain times;
+     through prior forests, exact equality (``torch.equal``): (64, 50, 50)
+     and (64, 200, 200) on the symmetric path (the same leaves and mask
+     twice) unmasked, with a 0/1 mask and with a float mask; the sampler's
+     tree-major view; (3, 77, 130) masked and unmasked; the predict-shaped
+     (64, 1024, 200); m = 37 (a partial 32-tree word); node_limit = 300 (16 planes,
+     ids up to 299). Then at (64, 50, 50) and (64, 200, 200) as the
+     sampler calls it and at (64, 1024, 200): device time (torch.profiler),
+     call time, the plain version's,
+     the bf16 one-hot ``torch.bmm`` (counts checked), the bound and the
+     share of it (``bark_tpu_torch/benchmarks/kernel_timing.py``);
   4. K2 (batched Cholesky with inverse, one launch for any BK <= 256)
      against its plain version on refresh-shaped SPD batches (128, n, n),
      n in {50, 128, 200, 256}: |L - L_plain| <= 1e-4 (2e-4 at n=256, the
@@ -20,7 +29,8 @@ in both of its tiers, in phases:
      and plain times at each shape; a zero pivot (a zero row and column)
      and a negative one (a negated matrix) give NaN over all of that
      matrix's L and E on both versions, and the rest of the batch stays
-     finite and within the bound. Then leaf-shaped batches A = Z^T Z +
+     finite and within the bound; device time, cuSOLVER's (the plain
+     version) and the bytes bound at each shape. Then leaf-shaped batches A = Z^T Z +
      (nu/gamma) I (Z the compact leaf indicator of prior forests routed at
      N=1024): K2 at (128, 256, 256) for nu/gamma in {5, 0.05}, and
      ``blocked_cholesky`` (two K2 launches, host-blocked at 256) at
@@ -55,8 +65,10 @@ in both of its tiers, in phases:
      replayed on the CPU deciding alike up to near-ties.
 
 Prints what each phase found, then one JSON line with each kernel's launch
-count on the N=50 run and on each path ("launches_by_path"), error and
-times (K2's at each shape of phase 4 under "times"), the
+count on the N=50 run and on each path ("launches_by_path"), error, times
+at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
+"library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
+under "times", the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 1.
@@ -89,24 +101,6 @@ def log(msg: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(torch, fn, reps: int = 25, inner: int = 10, warmup: int = 5) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``inner`` calls / inner."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
 
 
 def rel_err(torch, got, want) -> float:
@@ -191,7 +185,19 @@ def main() -> int:
     from bark_tpu_torch.forest import Forest, create_empty_forest, route_forest
     from bark_tpu_torch.ops import _build
     from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
-    from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
+    from bark_tpu_torch.benchmarks.kernel_timing import (
+        call_ms,
+        device_ms,
+        k2_bound,
+        time_k1,
+    )
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.gram import (
+        gram_cuda,
+        gram_plain,
+        is_symmetric_call,
+        launch_plan,
+    )
     from bark_tpu_torch.ops.linalg import JITTER, blocked_cholesky, kernel_matrix
 
     # --- 2. build -------------------------------------------------------
@@ -218,9 +224,11 @@ def main() -> int:
         ]
         return Forest(*(torch.stack(f).to(dev) for f in zip(*trees)))
 
+    X_of = {}
+
     def routed(forests: Forest, n: int) -> torch.Tensor:
-        X = torch.as_tensor(tf.domain.sample(n, rng), device=dev)
-        return route_forest(forests, X, ft).contiguous()  # (B, n, m)
+        X_of[n] = torch.as_tensor(tf.domain.sample(n, rng), device=dev)
+        return route_forest(forests, X_of[n], ft).contiguous()  # (B, n, m)
 
     forests64 = prior_forests(SLICE_CHAINS)
     leaves = {n: routed(forests64, n) for n in (50, 128, 200)}
@@ -233,27 +241,65 @@ def main() -> int:
 
     forests3 = prior_forests(3)
     l77, l130 = routed(forests3, 77), routed(forests3, 130)
+    leaves[1024] = routed(forests64, 1024)
+    # (name, l1, l2, mask1, mask2, node_limit); the same tensor twice takes
+    # the symmetric path, as the sampler's calls do
     k1_cases = []
     for n in (50, 200):
         ln = leaves[n]
-        k1_cases.append((f"({SLICE_CHAINS},{n},{n})", ln, ln, None, None))
+        k1_cases.append((f"({SLICE_CHAINS},{n},{n}) symmetric", ln, ln, None, None, 64))
         mask = rand_mask(n)
-        k1_cases.append((f"({SLICE_CHAINS},{n},{n}) masked", ln, ln, mask, mask))
-    k1_cases.append(("(3,77,130)", l77, l130, None, None))
-    k1_cases.append(("(3,77,130) masked", l77, l130, rand_mask(3, 77), rand_mask(130)))
+        k1_cases.append((f"({SLICE_CHAINS},{n},{n}) symmetric masked", ln, ln, mask, mask, 64))
+        fmask = torch.as_tensor(rng.uniform(0.1, 3.0, (SLICE_CHAINS, n)).astype(np.float32),
+                                device=dev)
+        k1_cases.append((f"({SLICE_CHAINS},{n},{n}) symmetric float mask", ln, ln, fmask,
+                         fmask, 64))
+    tree_major = route_forest(forests64, X_of[200], ft)  # the sampler's strided view
+    k1_cases.append((f"({SLICE_CHAINS},200,200) tree-major view", tree_major, tree_major,
+                     None, None, 64))
+    k1_cases.append(("(3,77,130)", l77, l130, None, None, 64))
+    k1_cases.append(("(3,77,130) masked", l77, l130, rand_mask(3, 77), rand_mask(130), 64))
+    k1_cases.append((f"({SLICE_CHAINS},1024,200) predict-shaped", leaves[1024], leaves[200],
+                     None, None, 64))
+    l37 = leaves[200][..., :37].contiguous()
+    k1_cases.append((f"({SLICE_CHAINS},200,200) m=37", l37, l37, None, None, 64))
+    wide = torch.as_tensor(rng.integers(0, 300, (SLICE_CHAINS, 200, SLICE_TREES)),
+                           dtype=torch.int32, device=dev)
+    k1_cases.append((f"({SLICE_CHAINS},200,200) node_limit=300", wide, wide, None, None, 300))
+    k1_cases.append(("(3,77,130) node_limit=300 masked", wide[:3, :77], wide[:3, 70:],
+                     rand_mask(77), rand_mask(3, 130), 300))
     k1_err = 0.0
-    k1_times = {}
-    for name, a, b, m1, m2 in k1_cases:
-        got = gram_cuda(a, b, m1, m2)
+    for name, a, b, m1, m2, nl in k1_cases:
+        got = gram_cuda(a, b, m1, m2, nl)
         want = gram_plain(a, b, m1, m2)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         k1_err = max(k1_err, err)
         require(torch.equal(got, want), f"K1 {name} equals its plain version (max err {err})")
-        ms = cuda_ms(torch, lambda: gram_cuda(a, b, m1, m2))
-        plain_ms = cuda_ms(torch, lambda: gram_plain(a, b, m1, m2))
-        k1_times[name] = (ms, plain_ms)
-        log(f"[K1] {name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        plan = launch_plan(a.shape[0], a.shape[1], b.shape[1], a.shape[2], nl,
+                           is_symmetric_call(a, b, m1, m2))
+        log(f"[K1] {name}: exact; {plan.planes} bit planes, tile {plan.tile}, "
+            f"{plan.jobs} jobs{' (symmetric)' if plan.symmetric else ''}")
+
+    # timed as the sampler calls it (the same leaves and all-ones mask twice)
+    # and at the predict shape: device and call time, the bf16
+    # one-hot product, the bound
+    k1_times = {}
+    for n, mcols in ((50, 50), (200, 200), (1024, 200)):
+        if n == mcols:
+            ones = torch.ones(n, device=dev)
+            args = (leaves[n], leaves[n], ones, ones)
+        else:
+            args = (leaves[n], leaves[mcols], None, None)
+        t = time_k1(torch, gram_module, *args, 64)
+        name = f"({SLICE_CHAINS},{n},{mcols})"
+        k1_times[name] = t
+        log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: device "
+            f"{t['device_ms']} ms ({t['kernels_per_call']} kernels a call: {t['kernel_ms']}), "
+            f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+            f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+        require(t["device_ms"] is not None, f"K1 {name}: the profiler saw the kernel")
 
     # --- 4. K2 against its plain version -----------------------------------
     def spd_batch(n: int) -> torch.Tensor:
@@ -286,12 +332,18 @@ def main() -> int:
         require(resid <= 5e-4, f"K2 {name}: |E L - I| = {resid} <= 5e-4")
         require(torch.equal(torch.triu(L, 1), torch.zeros_like(L)), f"K2 {name}: L lower")
         require(torch.equal(torch.triu(E, 1), torch.zeros_like(E)), f"K2 {name}: E lower")
-        ms = cuda_ms(torch, lambda: chol_inv_cuda(K))
-        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(K))
-        k2_times[name] = (ms, plain_ms)
+        ms = call_ms(torch, lambda: chol_inv_cuda(K))
+        plain_ms = call_ms(torch, lambda: chol_inv_plain(K))
+        dev_ms, _, _ = device_ms(torch, lambda: chol_inv_cuda(K), "chol_inv_kernel")
+        lib_ms, _, _ = device_ms(torch, lambda: chol_inv_plain(K))
+        bound_ms, bound_by = k2_bound(K.shape[0], n)
+        require(dev_ms is not None, f"K2 {name}: the profiler saw the kernel")
+        k2_times[name] = {"device_ms": dev_ms, "call_ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[K2] {name}: |L-L_plain| {err_l:.3e}, |EL-I| {resid:.3e}, "
-            f"|E-E_plain| {err_e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"on {smi}")
+            f"|E-E_plain| {err_e:.3e}; kernel device {dev_ms:.5f} ms, call {ms:.5f}, "
+            f"plain {plain_ms:.5f} call / {lib_ms} device (cuSOLVER); bound "
+            f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / dev_ms:.1f}% of it, on {smi}")
         if n in (50, 256):
             # pivot faults: matrix 3 exactly singular (a zero row and
             # column), matrix 7 negated; each poisoned whole, no other
@@ -342,9 +394,9 @@ def main() -> int:
         torch.cuda.synchronize()
         err, resid = check_factor(name, L, E, Lp, MAX_BLOCK)
         k2_leaf_err = max(k2_leaf_err, err)
-        ms = cuda_ms(torch, lambda: chol_inv_cuda(A))
-        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(A))
-        k2_times[name] = (ms, plain_ms)
+        ms = call_ms(torch, lambda: chol_inv_cuda(A))
+        plain_ms = call_ms(torch, lambda: chol_inv_plain(A))
+        k2_times[name] = {"call_ms": ms, "plain_ms": plain_ms}
         log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {smi}")
     for r in (384, 512):
@@ -358,9 +410,9 @@ def main() -> int:
         require(blocks == 2, f"K2 {name}: two launches (256-blocks), got {blocks}")
         err, resid = check_factor(name, L, E, Lp, r)
         k2_leaf_err = max(k2_leaf_err, err)
-        ms = cuda_ms(torch, lambda: blocked_cholesky(A))
-        plain_ms = cuda_ms(torch, lambda: chol_inv_plain(A))
-        k2_times[name] = (ms, plain_ms)
+        ms = call_ms(torch, lambda: blocked_cholesky(A))
+        plain_ms = call_ms(torch, lambda: chol_inv_plain(A))
+        k2_times[name] = {"call_ms": ms, "plain_ms": plain_ms}
         # pivot faults: a zero row and column in the second diagonal block
         # (matrix 3) and in the first (matrix 5), a negated matrix (7)
         bad = A.clone()
@@ -520,22 +572,28 @@ def main() -> int:
 
     log(f"[rates] chain-steps/s of the timed call: "
         f"{json.dumps({f'N={n}': round(r, 1) for n, r in rates.items()})} on {smi}")
-    k1_ms, k1_plain = k1_times[f"({SLICE_CHAINS},50,50)"]
-    k2_ms, k2_plain = k2_times["(128,50,50)"]
+    k1 = k1_times[f"({SLICE_CHAINS},50,50)"]
+    k2 = k2_times["(128,50,50)"]
+    k1_keys = ("device_ms", "kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+               "bound_by", "share_of_bound", "symmetric")
     kernels = [
         {"name": "gram", "route": "cuda", "source": "bark_tpu_torch/csrc/gram.cu",
          "replaces": "bark_tpu/ops/pallas_gram.py:40",
          "launches": launches[f"dense N={DENSE_NS[0]}"]["gram"],
          "launches_by_path": {p: c["gram"] for p, c in launches.items()},
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": k1["device_ms"], "device_ms": k1["device_ms"],
+         "call_ms": k1["call_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"],
+         "times": {name: {k: t[k] for k in k1_keys} for name, t in k1_times.items()}},
         {"name": "chol_inv", "route": "cuda", "source": "bark_tpu_torch/csrc/chol_inv.cu",
          "replaces": "bark_tpu/ops/pallas_chol.py:55",
          "launches": launches[f"dense N={DENSE_NS[0]}"]["chol_inv"],
          "launches_by_path": {p: c["chol_inv"] for p, c in launches.items()},
          "max_abs_err": k2_err, "max_rel_err_leaf": k2_leaf_err,
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "times": {name: {"ms": ms, "plain_ms": plain}
-                   for name, (ms, plain) in k2_times.items()}},
+         "ms": k2["device_ms"], "device_ms": k2["device_ms"], "call_ms": k2["call_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"], "times": k2_times},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,8 @@ imports none and runs without the suite's conftest:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: K1 counts integers, so kernel and plain version agree exactly;
+Tolerances: K1 counts integers and divides and masks in the plain
+version's order, so kernel and plain version agree exactly;
 K2 and cuSOLVER order the same float32 sums differently, so L agrees to
 1e-4 (2e-4 through ``blocked_cholesky``, the reference's bound for its
 blocked path) and E is an inverse of L to 5e-4 (the bounds of chip_smoke.py, from
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
+from bark_tpu_torch.ops import gram
 from bark_tpu_torch.ops.gram import gram_cuda, gram_from_leaves, gram_plain
 from bark_tpu_torch.ops.linalg import blocked_cholesky
 
@@ -37,17 +39,35 @@ def _spd(rng, g, bk, rank=16, ridge=0.5):
     return (a @ np.swapaxes(a, -1, -2) / rank + ridge * np.eye(bk)).astype(np.float32)
 
 
+def _leaf_ids(rng, shape, node_limit):
+    """Ids from a few values spread over [0, node_limit), the top one
+    included, so rows agree often and every bit plane is used."""
+    vals = np.unique(np.r_[rng.choice(node_limit, min(node_limit, 5), replace=False),
+                           node_limit - 1])
+    return vals[rng.integers(0, vals.size, shape)]
+
+
+def _leaves(dev, ids, layout):
+    """(B, R, m) int32 on the card, contiguous or as a tree-major view."""
+    t = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    return t if layout == "contiguous" else t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 @pytest.mark.parametrize(
-    "b,n,mcols,m",
-    [(1, 1, 1, 1), (2, 33, 31, 7), (4, 50, 50, 50), (3, 77, 130, 64), (2, 40, 70, 130)],
+    "b,n,mcols,m,node_limit",
+    [(1, 1, 1, 1, 64), (2, 33, 31, 7, 64), (4, 50, 50, 50, 64), (3, 77, 130, 64, 64),
+     (2, 40, 70, 130, 64), (3, 77, 130, 37, 64), (2, 45, 45, 3, 254),
+     (2, 45, 50, 37, 300), (2, 64, 64, 65, 300)],
 )
 @pytest.mark.parametrize("masks", ["none", "shared", "batched"])
-def test_gram_kernel_equals_plain(dev, b, n, mcols, m, masks):
-    """Ragged tiles, tree counts across the 64-tree staging passes, and both
-    mask layouts: exact equality."""
-    rng = np.random.default_rng(b * 1000 + n)
-    l1 = torch.as_tensor(rng.integers(0, 5, (b, n, m)), dtype=torch.int32, device=dev)
-    l2 = torch.as_tensor(rng.integers(0, 5, (b, mcols, m)), dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("layout", ["contiguous", "tree_major"])
+def test_gram_kernel_equals_plain(dev, b, n, mcols, m, node_limit, masks, layout):
+    """Ragged tiles, ragged m (a partial last 32-tree word), tree counts
+    across the 128-tree staging passes, 6 and 16 bit planes, both mask
+    layouts and tree-major leaves (copied by the wrapper): exact equality."""
+    rng = np.random.default_rng(b * 1000 + n + m)
+    l1 = _leaves(dev, _leaf_ids(rng, (b, n, m), node_limit), layout)
+    l2 = _leaves(dev, _leaf_ids(rng, (b, mcols, m), node_limit), layout)
 
     def mask(*shape):
         return torch.as_tensor((rng.uniform(size=shape) > 0.3).astype(np.float32), device=dev)
@@ -58,18 +78,44 @@ def test_gram_kernel_equals_plain(dev, b, n, mcols, m, masks):
         "batched": (mask(b, n), mask(b, mcols)),
     }[masks]
     before = gram_cuda.launches
-    got = gram_cuda(l1, l2, m1, m2)
+    got = gram_cuda(l1, l2, m1, m2, node_limit)
     want = gram_plain(l1, l2, m1, m2)
     torch.cuda.synchronize()
     assert gram_cuda.launches == before + 1
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 50, 64, 200, 255])
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("masks", ["none", "shared", "batched"])
+def test_gram_symmetric_path_equals_plain(dev, n, tile, masks):
+    """The same leaves and mask twice take the symmetric path (the tiles
+    with ti <= tj, each mirrored), in one launch, bit-exact against the
+    plain version with non-0/1 float masks, at every tile."""
+    rng = np.random.default_rng(n * 10 + tile)
+    b, m = 3, 50
+    leaves = _leaves(dev, _leaf_ids(rng, (b, n, m), 64), "contiguous")
+    shape = {"none": None, "shared": (n,), "batched": (b, n)}[masks]
+    mask = None if shape is None else torch.as_tensor(
+        rng.uniform(0.1, 3.0, shape).astype(np.float32), device=dev)
+    want = gram_plain(leaves, leaves, mask, mask)
+    plan = gram.launch_plan(b, n, n, m, symmetric=True, tile=tile)
+    assert plan.symmetric
+    before = gram_cuda.launches
+    got = gram.launch(plan, leaves, leaves, mask, mask)
+    chosen = gram_cuda(leaves, leaves, mask, mask)
+    torch.cuda.synchronize()
+    assert gram_cuda.launches == before + 2  # one launch per call
+    assert torch.equal(got, want) and torch.equal(chosen, want)
+
+
 def test_gram_dispatch_flattens_leading_dims(dev):
     rng = np.random.default_rng(5)
     leaves = torch.as_tensor(rng.integers(0, 4, (2, 3, 20, 9)), dtype=torch.int32, device=dev)
     mask = torch.as_tensor(rng.uniform(size=(2, 3, 20)) > 0.5, device=dev)
+    before = gram_cuda.launches
     got = gram_from_leaves(leaves, leaves, mask, mask)
+    assert gram_cuda.launches == before + 1
     assert got.shape == (2, 3, 20, 20)
     assert torch.equal(got, gram_plain(leaves, leaves, mask, mask))
 
@@ -79,9 +125,11 @@ def test_gram_kernel_rejects_bad_arguments(dev):
     with pytest.raises(ValueError, match="int32"):
         gram_cuda(leaves.long(), leaves.long())
     with pytest.raises(ValueError, match="contiguous"):
-        gram_cuda(leaves.transpose(1, 2), leaves.transpose(1, 2))
+        gram_cuda(leaves, leaves, torch.ones(2, 16, device=dev)[:, ::2])
     with pytest.raises(ValueError, match="mask shape"):
         gram_cuda(leaves, leaves, torch.ones(7, device=dev))
+    with pytest.raises(ValueError, match="node_limit"):
+        gram_cuda(leaves, leaves, node_limit=65537)
 
 
 @pytest.mark.parametrize("bk", [1, 7, 32, 33, 50, 127, 128, 129, 200, 255, MAX_BLOCK])
