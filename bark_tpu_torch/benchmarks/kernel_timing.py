@@ -86,7 +86,14 @@ def device_ms(torch, fn, match: str | None = None, calls: int = 20):
     """(ms per call, kernels per call, {kernel: ms per call}) from
     ``torch.profiler``: the device kernels whose name contains ``match`` (all
     of them when None) over ``calls`` calls. (None, 0, {}) when the profiler
-    saw no device kernel."""
+    saw no device kernel.
+
+    The profiler sometimes drops events. So each kernel's time per call is
+    its mean duration over the events that were captured, times its launches
+    per call, taken as captured / calls rounded to the nearest whole number
+    (at least 1): right for a kernel launched k times a call while fewer
+    than calls / 2 of its k * calls events are lost.
+    """
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -96,23 +103,25 @@ def device_ms(torch, fn, match: str | None = None, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us, count, split = 0.0, 0, {}
+    total_ms, per_call_total, split = 0.0, 0, {}
     for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        if "CUDA" not in str(getattr(ev, "device_type", "")) or ev.count == 0:
             continue
         if match is not None and match not in ev.key:
             continue
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        total_us += us
-        count += ev.count
+        per_call = max(1, round(ev.count / calls))
+        ms = us / ev.count * per_call / 1e3
+        total_ms += ms
+        per_call_total += per_call
         short = re.search(r"::(\w+(?:<[^>]*>)?)", ev.key)
         name = short.group(1) if short else ev.key[:40]
-        split[name] = split.get(name, 0.0) + us / calls / 1e3
-    if count == 0:
+        split[name] = split.get(name, 0.0) + ms
+    if per_call_total == 0:
         return None, 0, {}
-    return total_us / calls / 1e3, count / calls, split
+    return total_ms, per_call_total, split
 
 
 def onehot_bf16(torch, leaves, node_limit: int):
@@ -122,18 +131,22 @@ def onehot_bf16(torch, leaves, node_limit: int):
     return hot.reshape(b, n, m * node_limit).to(torch.bfloat16)
 
 
-def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int) -> dict:
+def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
+            plain_reps: int = 25, plain_inner: int = 10) -> dict:
     """Device and call time of ``gram.gram_cuda`` on these
     arguments; the bf16 one-hot ``torch.bmm`` on the same leaves (built
     outside the timed region; its counts must equal the plain version's
-    times m); the bound and the share of it."""
+    times m); the bound and the share of it. ``plain_reps`` x
+    ``plain_inner`` calls time the plain version (fewer at a large shape,
+    where one call takes tens of ms)."""
     b, n, m = l1.shape
     mcols = l2.shape[1]
     symmetric = l1 is l2 and mask1 is mask2
     run = lambda: gram.gram_cuda(l1, l2, mask1, mask2)  # noqa: E731
     dev, per_call, split = device_ms(torch, run, "gram")
     call = call_ms(torch, run)
-    plain = call_ms(torch, lambda: gram.gram_plain(l1, l2, mask1, mask2))
+    plain = call_ms(torch, lambda: gram.gram_plain(l1, l2, mask1, mask2),
+                    reps=plain_reps, inner=plain_inner, warmup=2)
     a = onehot_bf16(torch, l1, node_limit)
     bt = onehot_bf16(torch, l2, node_limit).transpose(1, 2).contiguous()
     counts = torch.bmm(a, bt)
@@ -149,6 +162,24 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int) -> dict:
         "device_ms": dev, "kernels_per_call": per_call, "kernel_ms": split,
         "call_ms": call, "plain_ms": plain, "library_ms": lib_dev,
         "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / dev,
+    }
+
+
+def time_k2(torch, fn, plain_fn, batch: int, n: int, match: str | None = None,
+            reps: int = 25, inner: int = 10) -> dict:
+    """Device and call time of ``fn`` (a K2 call, or ``blocked_cholesky`` with
+    its matmuls: ``match`` None sums every device kernel of the call), the
+    plain version's call time and its device time (cuSOLVER, the library
+    row), and K2's bound at (batch, n, n)."""
+    dev, per_call, _ = device_ms(torch, fn, match)
+    call = call_ms(torch, fn, reps=reps, inner=inner)
+    plain = call_ms(torch, plain_fn, reps=reps, inner=inner)
+    lib, _, _ = device_ms(torch, plain_fn)
+    bound_ms, bound_by = k2_bound(batch, n)
+    return {
+        "shape": [batch, n, n], "device_ms": dev, "kernels_per_call": per_call,
+        "call_ms": call, "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
+        "bound_by": bound_by, "share_of_bound": None if dev is None else bound_ms / dev,
     }
 
 

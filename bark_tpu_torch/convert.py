@@ -14,9 +14,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from bark_tpu_torch import constraints as port_constraints
+from bark_tpu_torch import domain as port_domain
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.sampler import BARKModel, ChainState, KernState
 from bark_tpu_torch.forest import FOREST_FIELDS, Forest, forest_from_numpy
+from bark_tpu_torch.models.surrogate import BARKSurrogate
+from bark_tpu_torch.optimizer.acquisition import (
+    AcquisitionState,
+    AcquisitionStateLR,
+    AcquisitionStateTS,
+)
 
 
 def _get(obj, name):
@@ -74,6 +82,59 @@ def chain_state_from_reference(state, device=None) -> ChainState:
         kern=kern,
         mll=_tensor(_get(state, "mll"), f32, device),
     )
+
+
+def domain_from_reference(domain) -> port_domain.Domain:
+    """A reference Domain: inputs, outputs and constraints are rebuilt as the
+    port's classes of the same name from their dataclass fields."""
+
+    def rebuild(obj, module):
+        cls = getattr(module, type(obj).__name__)
+        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
+
+    return port_domain.Domain(
+        [rebuild(f, port_domain) for f in domain.inputs],
+        outputs=[rebuild(o, port_domain) for o in domain.outputs],
+        constraints=[rebuild(c, port_constraints) for c in domain.constraints],
+    )
+
+
+def surrogate_from_reference(surrogate, device=None) -> BARKSurrogate:
+    """A fitted reference BARKSurrogate: its domain, params, posterior
+    samples, y scaler and the padded training data with the row mask, so
+    that both packages predict and build acquisitions from the same state."""
+    port = BARKSurrogate(
+        domain_from_reference(surrogate.domain),
+        params_from_reference(surrogate.params),
+        predict_backend=surrogate.predict_backend,
+        device=device,
+    )
+    dev = port.device
+    port.model = model_from_reference(surrogate.model, dev)
+    port.scaler.mean, port.scaler.std = surrogate.scaler.mean, surrogate.scaler.std
+    train_x, train_y = surrogate.train_data
+    port.train_data = (
+        _tensor(train_x, torch.float32, dev), _tensor(train_y, torch.float32, dev)
+    )
+    port.train_mask = _tensor(surrogate.train_mask, torch.float32, dev)
+    return port
+
+
+def acquisition_state_from_reference(state, device=None):
+    """A reference AcquisitionState, AcquisitionStateLR or
+    AcquisitionStateTS (told apart by their fields) as the port's."""
+    f32 = torch.float32
+    fields = state if isinstance(state, dict) else state._asdict()
+    forest = forest_from_reference(fields["forest"], device)
+    rest = {
+        k: _tensor(v, torch.int32 if k == "train_leaves" else f32, device)
+        for k, v in fields.items() if k != "forest"
+    }
+    if "K_inv" in rest:
+        return AcquisitionState(forest=forest, **rest)
+    if "beta" in rest:
+        return AcquisitionStateLR(forest=forest, **rest)
+    return AcquisitionStateTS(forest=forest, **rest)
 
 
 def to_numpy(obj):

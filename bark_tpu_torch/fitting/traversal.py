@@ -1,7 +1,8 @@
 """Fixed-shape tree traversal: node masks and node subspaces.
 
 Counterpart of the parts of ``bark_tpu/fitting/traversal.py`` the sampler's
-default proposals use, batched over any leading dims (chains x trees).
+default proposals and the acquisition search's leaf boxes use, batched over
+any leading dims (chains x trees).
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from bark_tpu_torch.fitting.bits import next_power_of_2
-from bark_tpu_torch.forest import FEAT_CAT, FEAT_INT, Forest
+from bark_tpu_torch.forest import FEAT_CAT, FEAT_INT, Forest, pack_forest
 
 
 def terminal_mask(tree: Forest) -> torch.Tensor:
@@ -79,3 +80,23 @@ def node_subspace_packed(
         lower = torch.where(upd, new_lb[:, None], lower)
         node = torch.where(at_root, node, parent)
     return torch.stack([lower, upper], dim=-1)
+
+
+def node_subspace(
+    tree: Forest,
+    node_idx: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int,
+) -> torch.Tensor:
+    """Sub-domain ``(..., D, 2)`` of the points reaching ``node_idx`` (...).
+
+    ``tree`` fields are (..., node_limit), one tree per leading index. The
+    reference's ``node_subspace`` walk is the packed walk's arithmetic on
+    unpacked fields, so this packs the trees and runs
+    :func:`node_subspace_packed` over the flattened leading dims.
+    """
+    lead = node_idx.shape
+    packed = pack_forest(tree).reshape(-1, tree.is_leaf.shape[-1], 8)
+    box = node_subspace_packed(packed, node_idx.reshape(-1), bounds, feat_types, max_depth)
+    return box.reshape(*lead, *box.shape[-2:])

@@ -227,6 +227,18 @@ def compact_leaf_indicator(
     return indicator_from_targets(leaves, target, r)
 
 
+def num_null_trees(forest: Forest) -> torch.Tensor:
+    """Number of single-leaf ("null") trees per forest in the batch (int32)."""
+    return forest.is_leaf[..., 0].sum(-1, dtype=torch.int32)
+
+
+def flatten_batch(forest: Forest) -> Forest:
+    """Fields (..., m, node_limit) -> (S, m, node_limit), S the product of
+    the batch dims (chains x samples)."""
+    m, node_limit = forest.num_trees, forest.node_limit
+    return Forest(*(t.reshape(-1, m, node_limit) for t in forest))
+
+
 def pack_forest(forest: Forest) -> torch.Tensor:
     """Pack the 8 fields into one int32 tensor ``(..., m, node_limit, 8)``.
 

@@ -1,16 +1,19 @@
-"""GP linear algebra of the sampler: kernel matrix, MLL, Cholesky with inverse.
+"""GP linear algebra: kernel matrix, MLL, Cholesky with inverse, posterior.
 
-Counterpart of the parts of ``bark_tpu/ops/linalg.py`` the dense-tier
-sampler uses. Every factorization goes through the batched
-Cholesky-with-inverse kernel (``ops.chol``, K2): in one launch for N <= 256,
-which covers the whole dense tier, and above that as the diagonal blocks of
-:func:`blocked_cholesky`, whose panels and trailing updates are
-``torch.matmul`` as in the reference.
+Counterpart of the parts of ``bark_tpu/ops/linalg.py`` the sampler, the
+posterior prediction and the acquisition use. Every factorization goes
+through the batched Cholesky-with-inverse kernel (``ops.chol``, K2): in one
+launch for N <= 256, which covers the whole dense tier, and above that as
+the diagonal blocks of :func:`blocked_cholesky`, whose panels and trailing
+updates are ``torch.matmul`` as in the reference. The predict and
+acquisition paths factor through :func:`robust_cholesky`, which re-factors
+with more jitter the matrices that failed.
 
 Precision: the reference runs its MLL-critical products at full float32
 (``MM_PRECISION = "highest"``) because reduced-precision matmuls biased the
 posterior. Here the same requirement is a guard, :func:`check_matmul_precision`,
-called at the sampler's entry points: TF32 matmuls must be off.
+called at the sampler's, the prediction's and the acquisition's entry
+points: TF32 matmuls must be off.
 """
 
 from __future__ import annotations
@@ -143,3 +146,70 @@ def chol_inv_logdet(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     K_inv = E.transpose(-1, -2) @ E
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     return K_inv, logdet
+
+
+def robust_cholesky(
+    K: torch.Tensor, shifts: tuple[float, ...]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(L, L^-1)`` of K (..., N, N) with diagonal escalation per matrix.
+
+    Every matrix is factored once. A matrix whose factorization failed (K2
+    and its plain version turn a failed matrix into NaN whole, so a
+    non-finite logdet says so) is factored again as ``K + shift I`` for each
+    shift in turn until one succeeds; a matrix that fails every shift keeps
+    the last attempt's NaN. Each matrix therefore gets the first attempt
+    that is finite, as the reference's select over three factorizations of
+    the whole batch does, but only the failed matrices are factored again.
+    One host check (``.any()``) decides whether any matrix needs it, so this
+    belongs to the predict and acquisition paths (once per fit or ask), not
+    to the sampler's loop, where a NaN MLL rejects the move.
+    """
+    n = K.shape[-1]
+    flat = K.reshape(-1, n, n)
+    L, E = blocked_cholesky(flat)
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    for shift in shifts:
+        bad = ~torch.isfinite(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
+        if not bool(bad.any()):
+            break
+        idx = torch.nonzero(bad).flatten()
+        L[idx], E[idx] = blocked_cholesky(flat[idx] + shift * eye)
+        robust_cholesky.escalations += 1
+    return L.reshape(K.shape), E.reshape(K.shape)
+
+
+robust_cholesky.escalations = 0  # factorizations beyond the first, for the chip check
+
+
+def robust_chol_inv_logdet(
+    K: torch.Tensor, escalations: tuple[float, ...] = (1e2, 1e4)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chol_inv_logdet` with jitter escalation per matrix.
+
+    The agreement kernel is only PSD up to sampling, so a near-singular
+    posterior sample can fail the factorization. A failed matrix is factored
+    again as ``K + f * JITTER * I`` for each ``f`` in ``escalations``
+    (:func:`robust_cholesky`); ``K^-1 = E^T E`` and the logdet come from the
+    attempt that succeeded.
+    """
+    L, E = robust_cholesky(K, tuple(f * JITTER for f in escalations))
+    K_inv = E.transpose(-1, -2) @ E
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    return K_inv, logdet
+
+
+def gp_posterior(
+    K_inv: torch.Tensor, K_xX: torch.Tensor, y: torch.Tensor, prior_var: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and diagonal variance, batched over kernel samples.
+
+    ``K_inv`` (..., N, N), ``K_xX`` (..., M, N), ``y`` (N,), ``prior_var``
+    (...): ``mu = K_xX K^-1 y``; ``var = prior_var - diag(K_xX K^-1 K_xX^T)``,
+    clamped at 1e-12 (float32 round-off can push a tiny posterior variance
+    below zero).
+    """
+    y = y.reshape(-1)
+    mu = (K_xX @ (K_inv @ y)[..., None])[..., 0]
+    solve = K_inv @ K_xX.transpose(-1, -2)  # (..., N, M)
+    var = prior_var[..., None] - (K_xX * solve.transpose(-1, -2)).sum(-1)
+    return mu, var.clamp_min(1e-12)

@@ -22,7 +22,7 @@ import torch
 from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
 from bark_tpu_torch.ops import gram
 from bark_tpu_torch.ops.gram import gram_cuda, gram_from_leaves, gram_plain
-from bark_tpu_torch.ops.linalg import blocked_cholesky
+from bark_tpu_torch.ops.linalg import JITTER, blocked_cholesky, robust_chol_inv_logdet
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +212,56 @@ def test_blocked_cholesky_pivot_faults_on_the_card(dev, n):
         assert torch.isfinite(l_[good]).all() and torch.isfinite(e_[good]).all()
     assert (L[good] - Lp[good]).abs().max().item() <= 2e-4
     assert (E[good] @ L[good] - torch.eye(n, device=dev)).abs().max().item() <= 5e-4
+
+
+@pytest.mark.parametrize("s,b,n", [(6, 64, 32), (16, 1024, 224), (4, 4096, 224)])
+def test_gram_acquisition_shape_with_the_column_mask_only(dev, s, b, n):
+    """K1 as the dense acquisition and predict call it: candidates against
+    training leaves, (S, B, N), no row mask and one (N,) column mask shared
+    by the batch (the padded rows of a bucket): exact, one launch."""
+    rng = np.random.default_rng(s + b)
+    m = 50
+    cand = _leaves(dev, _leaf_ids(rng, (s, b, m), 64), "contiguous")
+    train = _leaves(dev, _leaf_ids(rng, (s, n, m), 64), "contiguous")
+    mask = torch.zeros(n, device=dev)
+    mask[: n - 24] = 1.0
+    before = gram_cuda.launches
+    got = gram_from_leaves(cand, train, None, mask, 64)
+    torch.cuda.synchronize()
+    assert gram_cuda.launches == before + 1
+    assert got.shape == (s, b, n)
+    assert torch.equal(got, gram_plain(cand, train, None, mask))
+    assert not got[..., n - 24:].any() and got[..., : n - 24].any()
+
+
+def test_robust_chol_inv_logdet_refactors_the_failed_matrix_on_the_card(dev):
+    """K2 through the predict path's factorization, (8, 224, 224), with one
+    matrix whose smallest eigenvalue is slightly negative: one launch for
+    the batch, one more for that matrix with 100 x jitter; it then agrees
+    with the plain version factored with that jitter, and the others with
+    the plain version as they are."""
+    n = 224
+    d = _spd(np.random.default_rng(0), 8, n, rank=24)
+    w, U = np.linalg.eigh(d[5].astype(np.float64))
+    w[0] = -2e-5
+    d[5] = ((U * w) @ U.T).astype(np.float32)
+    K = torch.as_tensor(d, device=dev)
+    before = chol_inv_cuda.launches
+    K_inv, logdet = robust_chol_inv_logdet(K)
+    torch.cuda.synchronize()
+    assert chol_inv_cuda.launches == before + 2
+    assert torch.isfinite(K_inv).all() and torch.isfinite(logdet).all()
+    shifted = K.clone()
+    shifted[5] += 100 * JITTER * torch.eye(n, device=dev)
+    Lp, Ep = chol_inv_plain(shifted)
+    want = Ep.transpose(1, 2) @ Ep
+    good = [i for i in range(8) if i != 5]
+    assert (K_inv[good] - want[good]).abs().max().item() <= 1e-3 * want[good].abs().max().item()
+    # the refactored matrix is nearly singular (condition number ~1e5)
+    assert (K_inv[5] - want[5]).abs().max().item() <= 5e-2 * want[5].abs().max().item()
+    want_logdet = 2.0 * torch.log(torch.diagonal(Lp, dim1=1, dim2=2)).sum(-1)
+    torch.testing.assert_close(logdet, want_logdet, rtol=1e-4, atol=2e-2)
+    # a batch without a failure is one launch
+    before = chol_inv_cuda.launches
+    robust_chol_inv_logdet(K[:5])
+    assert chol_inv_cuda.launches == before + 1

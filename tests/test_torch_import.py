@@ -28,6 +28,11 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.fitting.sampler, bark_tpu_torch.benchmarks.tree_function\n"
         "import bark_tpu_torch.convert, bark_tpu_torch.domain, bark_tpu_torch.ops.linalg\n"
         "import bark_tpu_torch.ops._build\n"
+        "import bark_tpu_torch.constraints, bark_tpu_torch.benchmarks\n"
+        "import bark_tpu_torch.models.gp, bark_tpu_torch.models.surrogate\n"
+        "import bark_tpu_torch.optimizer.acquisition, bark_tpu_torch.optimizer.search\n"
+        "import bark_tpu_torch.strategies.capabilities, bark_tpu_torch.strategies.tree_kernel\n"
+        "import bark_tpu_torch.utils.diagnostics, bark_tpu_torch.benchmarks.kernel_timing\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -94,3 +99,36 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         chol_inv_cuda(torch.eye(4)[None])
     assert gram_cuda.launches == 0 and chol_inv_cuda.launches == 0
+
+
+def test_bo_script_runs_on_the_port_without_jax():
+    """The documented BO flow with only the package name and ``device``
+    changed, JAX unavailable: a few iterations on the CPU; without
+    ``device`` and without a card it raises."""
+    proc = _run(
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from bark_tpu_torch.benchmarks import map_benchmark\n"
+        "from bark_tpu_torch.fitting.params import SamplerParams\n"
+        "from bark_tpu_torch.strategies.tree_kernel import make_strategy\n"
+        "bench = map_benchmark('TreeFunction', dim=2, m=10, function_seed=1)\n"
+        "X = bench.domain.sample(8, np.random.default_rng(0)); y = bench.f(X)\n"
+        "params = SamplerParams(warmup_steps=5, num_samples=4, steps_per_sample=2,\n"
+        "                       num_chains=2, num_trees=20)\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        make_strategy('BARK', bench.domain, seed=0, params=params)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e)\n"
+        "    else:\n"
+        "        raise SystemExit('no device asked for, no card, and no error')\n"
+        "s = make_strategy('BARK', bench.domain, seed=0, params=params,\n"
+        "                  num_candidates=256, num_rounds=2, device='cpu')\n"
+        "s.tell(X, y)\n"
+        "for i in range(3):\n"
+        "    c = s.ask(1); s.add(c, bench.f(c))\n"
+        "assert len(s.y) == 11 and s.fallbacks == 0 and np.isfinite(s.y).all()\n"
+        "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
