@@ -40,6 +40,7 @@ FP32_OPS_PER_S = 67e12
 K1_SHAPES = ((64, 50, 50), (64, 200, 200), (64, 1024, 200))
 K1_TREES = 50
 K1_NODE_LIMIT = 64
+_CAPTURES = 3  # profiler captures device_ms takes before it refuses a short one
 
 
 def bound(bytes_: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -82,29 +83,50 @@ def call_ms(torch, fn, reps: int = 25, inner: int = 10, warmup: int = 5) -> floa
     return statistics.median(times)
 
 
-def device_ms(torch, fn, match: str | None = None, calls: int = 20):
+def device_ms(torch, fn, match: str | None = None, calls: int = 20,
+              launches: int | None = None):
     """(ms per call, kernels per call, {kernel: ms per call}) from
     ``torch.profiler``: the device kernels whose name contains ``match`` (all
-    of them when None) over ``calls`` calls. (None, 0, {}) when the profiler
-    saw no device kernel.
+    of them when None) over ``calls`` calls (see :func:`summarise_events`).
+    ``launches`` is the number of such kernels one call launches, where the
+    caller knows it: a capture that holds fewer than half of them is taken
+    again, up to ``_CAPTURES`` captures, and then refused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(_CAPTURES):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        try:
+            return summarise_events(prof.key_averages(), calls, match, launches)
+        except RuntimeError as err:
+            if attempt + 1 == _CAPTURES:
+                raise RuntimeError(f"{err} (in each of {_CAPTURES} captures)") from None
+            print(f"kernel_timing: {err}; capturing again", file=sys.stderr, flush=True)
+
+
+def summarise_events(events, calls: int, match: str | None = None,
+                     launches: int | None = None):
+    """Device time per call from profiler averages (``key_averages()``:
+    objects with ``key``, ``count``, ``device_type`` and
+    ``device_time_total`` in us, or ``cuda_time_total`` in older torch).
 
     The profiler sometimes drops events. So each kernel's time per call is
     its mean duration over the events that were captured, times its launches
     per call, taken as captured / calls rounded to the nearest whole number
     (at least 1): right for a kernel launched k times a call while fewer
-    than calls / 2 of its k * calls events are lost.
+    than calls / 2 of its k * calls events are lost. With ``launches`` (the
+    device kernels one call launches) a capture of fewer than half of the
+    ``launches * calls`` events raises, rather than time what it missed.
+    Returns (None, 0, {}) when no device kernel matched and no count was
+    expected.
     """
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_ms, per_call_total, split = 0.0, 0, {}
-    for ev in prof.key_averages():
+    total_ms, per_call_total, captured, split = 0.0, 0, 0, {}
+    for ev in events:
         if "CUDA" not in str(getattr(ev, "device_type", "")) or ev.count == 0:
             continue
         if match is not None and match not in ev.key:
@@ -116,9 +138,15 @@ def device_ms(torch, fn, match: str | None = None, calls: int = 20):
         ms = us / ev.count * per_call / 1e3
         total_ms += ms
         per_call_total += per_call
+        captured += ev.count
         short = re.search(r"::(\w+(?:<[^>]*>)?)", ev.key)
         name = short.group(1) if short else ev.key[:40]
         split[name] = split.get(name, 0.0) + ms
+    if launches is not None and captured < 0.5 * launches * calls:
+        raise RuntimeError(
+            f"the profiler captured {captured} of the {launches * calls} device kernels "
+            f"{calls} calls launch ({match or 'any'}): too few to time"
+        )
     if per_call_total == 0:
         return None, 0, {}
     return total_ms, per_call_total, split
@@ -143,7 +171,8 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
     mcols = l2.shape[1]
     symmetric = l1 is l2 and mask1 is mask2
     run = lambda: gram.gram_cuda(l1, l2, mask1, mask2)  # noqa: E731
-    dev, per_call, split = device_ms(torch, run, "gram")
+    # a plane pass per distinct leaves tensor, then the Gram kernel
+    dev, per_call, split = device_ms(torch, run, "gram", launches=(1 if l1 is l2 else 2) + 1)
     call = call_ms(torch, run)
     plain = call_ms(torch, lambda: gram.gram_plain(l1, l2, mask1, mask2),
                     reps=plain_reps, inner=plain_inner, warmup=2)
@@ -154,7 +183,8 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
     torch.cuda.synchronize()
     if not torch.equal(counts.float(), want):
         raise RuntimeError(f"one-hot bmm counts differ from the plain version at {tuple(l1.shape)}")
-    lib_dev, _, _ = device_ms(torch, lambda: torch.bmm(a, bt))
+    # at least one device kernel a call: an empty capture is taken again
+    lib_dev, _, _ = device_ms(torch, lambda: torch.bmm(a, bt), launches=1)
     del a, bt, counts
     bound_ms, bound_by = k1_bound(b, n, mcols, m, symmetric, mask1 is not None)
     return {
@@ -166,15 +196,18 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
 
 
 def time_k2(torch, fn, plain_fn, batch: int, n: int, match: str | None = None,
-            reps: int = 25, inner: int = 10) -> dict:
+            reps: int = 25, inner: int = 10, launches: int | None = None) -> dict:
     """Device and call time of ``fn`` (a K2 call, or ``blocked_cholesky`` with
     its matmuls: ``match`` None sums every device kernel of the call), the
     plain version's call time and its device time (cuSOLVER, the library
-    row), and K2's bound at (batch, n, n)."""
-    dev, per_call, _ = device_ms(torch, fn, match)
+    row), and K2's bound at (batch, n, n). ``launches``: the matching
+    kernels of one call (one K2 launch when ``match`` names K2)."""
+    if launches is None and match is not None:
+        launches = 1
+    dev, per_call, _ = device_ms(torch, fn, match, launches=launches)
     call = call_ms(torch, fn, reps=reps, inner=inner)
     plain = call_ms(torch, plain_fn, reps=reps, inner=inner)
-    lib, _, _ = device_ms(torch, plain_fn)
+    lib, _, _ = device_ms(torch, plain_fn, launches=1)
     bound_ms, bound_by = k2_bound(batch, n)
     return {
         "shape": [batch, n, n], "device_ms": dev, "kernels_per_call": per_call,

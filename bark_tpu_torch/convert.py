@@ -19,12 +19,13 @@ from bark_tpu_torch import domain as port_domain
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.sampler import BARKModel, ChainState, KernState
 from bark_tpu_torch.forest import FOREST_FIELDS, Forest, forest_from_numpy
-from bark_tpu_torch.models.surrogate import BARKSurrogate
+from bark_tpu_torch.models.surrogate import BARKPriorSurrogate, BARKSurrogate
 from bark_tpu_torch.optimizer.acquisition import (
     AcquisitionState,
     AcquisitionStateLR,
     AcquisitionStateTS,
 )
+from bark_tpu_torch.parallel.tempering import PTState
 
 
 def _get(obj, name):
@@ -99,16 +100,31 @@ def domain_from_reference(domain) -> port_domain.Domain:
     )
 
 
-def surrogate_from_reference(surrogate, device=None) -> BARKSurrogate:
-    """A fitted reference BARKSurrogate: its domain, params, posterior
-    samples, y scaler and the padded training data with the row mask, so
-    that both packages predict and build acquisitions from the same state."""
-    port = BARKSurrogate(
-        domain_from_reference(surrogate.domain),
-        params_from_reference(surrogate.params),
-        predict_backend=surrogate.predict_backend,
-        device=device,
+def pt_state_from_reference(state, device=None) -> PTState:
+    """A reference PTState, chains with a leading (R,) replica axis and (R,)
+    betas, as the port's one ladder: (R,) chain rows and (1, R) betas."""
+    betas = _tensor(_get(state, "betas"), torch.float32, device)
+    return PTState(chain_state_from_reference(_get(state, "chains"), device), betas[None])
+
+
+def surrogate_from_reference(surrogate, device=None):
+    """A fitted reference BARKSurrogate or BARKPriorSurrogate as the port's
+    class of the same name: its domain, params, options, posterior (or
+    prior) samples, y scaler and the padded training data with the row
+    mask, so that both packages predict and build acquisitions from the same
+    state."""
+    common = dict(
+        predict_backend=surrogate.predict_backend, device=device,
     )
+    domain = domain_from_reference(surrogate.domain)
+    params = params_from_reference(surrogate.params)
+    if type(surrogate).__name__ == "BARKPriorSurrogate":
+        port = BARKPriorSurrogate(domain, params, num_samples=surrogate.num_samples, **common)
+    else:
+        port = BARKSurrogate(
+            domain, params, fit_style=surrogate.fit_style,
+            num_replicas=surrogate.num_replicas, beta_min=surrogate.beta_min, **common,
+        )
     dev = port.device
     port.model = model_from_reference(surrogate.model, dev)
     port.scaler.mean, port.scaler.std = surrogate.scaler.mean, surrogate.scaler.std

@@ -225,6 +225,16 @@ class ChainState(NamedTuple):
             self.scale.to(device), self.kern.to(device), self.mll.to(device),
         )
 
+    def take(self, rows: torch.Tensor) -> "ChainState":
+        """The chain rows ``rows`` (an index tensor) of every field, the
+        kernel carry included."""
+        return ChainState(
+            Forest(*(t[rows] for t in self.forest)), self.leaves[rows],
+            self.noise[rows], self.scale[rows],
+            KernState(*(None if t is None else t[rows] for t in self.kern)),
+            self.mll[rows],
+        )
+
 
 class BARKModel(NamedTuple):
     """(forest, noise, scale); batch dims (chains, samples) lead each field."""
@@ -475,6 +485,17 @@ def _update_patterns(packed0, batch, mask):
     return torch.stack([mask * w_add, mask * w_sub], dim=-1)
 
 
+def _tempered(beta, delta_mll: torch.Tensor) -> torch.Tensor:
+    """``beta * delta_mll``: the likelihood-tempered MLL difference of an MH
+    ratio. ``beta`` is an inverse temperature, a float or a (C,) tensor with
+    one per chain row. A float 1.0 returns the difference itself: the
+    product would be exact, and the plain step, bound by the host's launch
+    rate, is spared a launch per move."""
+    if isinstance(beta, (int, float)) and beta == 1.0:
+        return delta_mll
+    return beta * delta_mll
+
+
 def _capacitance_inverse(G):
     """Inverse of the 2x2 capacitance M = diag(1, -1) + G of a rank-2
     Woodbury update (G = W^T K^-1 W, (C, 2, 2)): ``(Minv, detM, denom2)``.
@@ -490,7 +511,9 @@ def _capacitance_inverse(G):
     return Minv, detM, denom2
 
 
-def _tree_moves_rank1(state, X, y, mask, pad_count, bounds, feat_types, params, noise):
+def _tree_moves_rank1(
+    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
+):
     """m tree moves with rank-2 Woodbury maintenance of K^-1 (plain scan).
 
     Per move, with W the scaled update patterns (:func:`_update_patterns`):
@@ -538,7 +561,7 @@ def _tree_moves_rank1(state, X, y, mask, pad_count, bounds, feat_types, params, 
 
         new_mll = 0.5 * (-quad2 - K_logdet2 + mll_corr)
         new_mll = torch.where(denom2 > eps, new_mll, -torch.inf)
-        log_alpha = batch.log_q_prior[:, j] + new_mll - cur_mll
+        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
         acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
 
         K_inv = torch.where(acc[:, None, None], K_inv2, K_inv)
@@ -554,7 +577,9 @@ def _tree_moves_rank1(state, X, y, mask, pad_count, bounds, feat_types, params, 
     return forest, leaves, accepts, torch.stack(log_alphas, 1)
 
 
-def _tree_moves_coeff(state, X, y, mask, pad_count, bounds, feat_types, params, noise):
+def _tree_moves_coeff(
+    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
+):
     """m tree moves in coefficient space with the leaf-capacity guard (leaf tier).
 
     The Woodbury algebra of :func:`_tree_moves_rank1` in the span of
@@ -629,7 +654,7 @@ def _tree_moves_coeff(state, X, y, mask, pad_count, bounds, feat_types, params, 
         new_mll = 0.5 * (-quad2 - K_logdet2 + mll_corr)
         new_mll = torch.where(denom2 > eps, new_mll, -torch.inf)
         new_mll = torch.where(total + delta[:, j] > budget, -torch.inf, new_mll)
-        log_alpha = batch.log_q_prior[:, j] + new_mll - cur_mll
+        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
         acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
 
         S = torch.where(acc[:, None, None], S + (c @ Minv) @ c.transpose(1, 2), S)
@@ -655,10 +680,19 @@ def step_with_info(
     params: SamplerParams,
     draws: StepDraws,
     mask: torch.Tensor | None = None,
+    beta: float | torch.Tensor = 1.0,
 ) -> tuple[ChainState, StepInfo]:
     """One full MCMC step for C chains: m tree moves + one noise/scale move.
 
-    Returns the new state and the step's accept decisions.
+    ``beta`` is the inverse temperature of likelihood tempering (parallel
+    tempering, SMC): a float, or a (C,) float32 tensor with one per chain
+    row. It multiplies the MLL difference of every MH ratio, the tree moves'
+    and the noise move's; the proposal ratios stay untempered, and beta = 1
+    is the plain step. (It is not ``params.beta``, the tree prior's depth
+    exponent.)
+
+    Returns the new state and the step's accept decisions; the log ratios in
+    :class:`StepInfo` are the tempered ones.
     """
     params = _resolve_styles(params, X.shape[0])
     check_matmul_precision()
@@ -672,7 +706,7 @@ def step_with_info(
     leaf_tier = params.refresh_style == "leaf"
     tree_moves = _tree_moves_coeff if leaf_tier else _tree_moves_rank1
     forest, leaves, accepts, tree_log_alpha = tree_moves(
-        state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal
+        state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
     )
     noise2 = torch.stack([state.noise, new_noise], 1)  # (C, 2)
     scale2 = torch.stack([state.scale, new_scale], 1)
@@ -700,7 +734,7 @@ def step_with_info(
         mll2, logdet2 = _chol_mll(L2, y_flat, noise2, pad_count)
     cur_mll, new_mll = mll2[:, 0], mll2[:, 1]
 
-    log_alpha = log_q_hyper + new_mll - cur_mll
+    log_alpha = log_q_hyper + _tempered(beta, new_mll - cur_mll)
     accept = torch.log(draws.u_hyper) <= torch.minimum(
         log_alpha, torch.zeros_like(log_alpha)
     )
@@ -735,9 +769,10 @@ def step(
     params: SamplerParams,
     draws: StepDraws,
     mask: torch.Tensor | None = None,
+    beta: float | torch.Tensor = 1.0,
 ) -> ChainState:
     """One full MCMC step (see :func:`step_with_info`)."""
-    return step_with_info(state, X, y, bounds, feat_types, params, draws, mask)[0]
+    return step_with_info(state, X, y, bounds, feat_types, params, draws, mask, beta)[0]
 
 
 class ChainRun(NamedTuple):
@@ -821,3 +856,19 @@ def run_bark_sampler(
     """Multi-chain driver: returns samples with leading (chains, samples)
     dims. ``mask`` marks real training rows when X/y are padded."""
     return run_chain(generator, model, X, y, bounds, feat_types, params, mask).samples
+
+
+def run_bark_sampler_with_trace(
+    generator: torch.Generator,
+    model: BARKModel,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    params: SamplerParams,
+    mask: torch.Tensor | None = None,
+) -> tuple[BARKModel, torch.Tensor]:
+    """:func:`run_bark_sampler` plus the MLL at every sample,
+    ``(chains, num_samples)``: the diagnostics path (time to a target MLL)."""
+    run = run_chain(generator, model, X, y, bounds, feat_types, params, mask)
+    return run.samples, run.mll

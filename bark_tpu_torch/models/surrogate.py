@@ -10,7 +10,8 @@ reference,
   - the training set is padded to a 32-row bucket with a row mask (padded
     rows are inert in the kernel, the MLL and the posterior);
   - the sampler warm-starts from each chain's most recent posterior sample
-    and skips warmup after the first fit;
+    and skips warmup after the first fit (a tempered fit tiles it over its
+    ladder's replicas);
   - predictions collapse the per-sample Gaussians by moment matching and
     add observation noise per sample.
 
@@ -26,6 +27,7 @@ import torch
 
 from bark_tpu_torch.domain import Domain, Standardize
 from bark_tpu_torch.fitting.params import SamplerParams
+from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior, sample_noise_prior
 from bark_tpu_torch.fitting.sampler import (
     BARKModel,
     _leaf_budget,
@@ -33,6 +35,8 @@ from bark_tpu_torch.fitting.sampler import (
     run_bark_sampler,
 )
 from bark_tpu_torch.forest import Forest, create_empty_forest
+from bark_tpu_torch.ops.linalg import check_matmul_precision
+from bark_tpu_torch.parallel.tempering import run_parallel_tempering
 from bark_tpu_torch.models.gp import (
     forest_predict,
     forest_predict_leaf,
@@ -89,6 +93,9 @@ class _BARKSurrogateBase:
     @property
     def is_fitted(self) -> bool:
         return self.model is not None
+
+    def model_as_tuple(self) -> BARKModel | None:
+        return self.model
 
     def predict(
         self, X, batched: bool = False, predict_observed: bool = True
@@ -160,28 +167,36 @@ class _BARKSurrogateBase:
 class BARKSurrogate(_BARKSurrogateBase):
     """Fully-Bayesian BARK surrogate (MCMC over forest and noise).
 
-    ``fit_style="chains"`` runs independent MH chains
-    (:func:`run_bark_sampler`), batched over the chain dimension;
-    ``"tempered"`` (parallel tempering) is not ported yet. After every fit,
-    ``fit_diagnostics`` holds split-R-hat and ESS over the sampled noise
-    trace (chains x samples), so a caller can see how far from stationarity
-    the fit budget left the posterior.
+    ``fit_style``:
+
+      - ``"chains"`` runs independent MH chains (:func:`run_bark_sampler`),
+        batched over the chain dimension;
+      - ``"tempered"`` runs parallel tempering: ``num_chains`` ladders of
+        ``num_replicas`` inverse temperatures from 1 down to ``beta_min``,
+        with even-odd swaps, all ladders' replicas batched as chain rows of
+        one step; samples come from each ladder's cold replica. It is the fix
+        for the metastable posterior at N >= 512, at ``num_replicas`` times
+        the step work of ``"chains"``.
+
+    After every fit, ``fit_diagnostics`` holds split-R-hat and ESS over the
+    sampled noise trace (chains x samples), so a caller can see how far from
+    stationarity the fit budget left the posterior; a tempered fit adds the
+    mean ``swap_rate``.
     """
 
     def __init__(self, domain: Domain, params: SamplerParams | None = None,
                  seed: int = 0, predict_backend: str = "auto",
-                 fit_style: str = "chains", device=None):
+                 fit_style: str = "chains", num_replicas: int = 8,
+                 beta_min: float = 0.05, device=None):
         if fit_style not in ("chains", "tempered"):
             raise ValueError(f"unknown fit_style: {fit_style!r}")
-        if fit_style == "tempered":
-            raise NotImplementedError(
-                'fit_style="tempered": parallel tempering (parallel/) is not '
-                "ported yet (ROADMAP.md queue 1 item 9)"
-            )
         super().__init__(domain, params or SamplerParams(),
                          predict_backend=predict_backend, device=device)
         self.fit_style = fit_style
+        self.num_replicas = num_replicas
+        self.beta_min = beta_min
         self.fit_diagnostics: dict | None = None
+        self._last_swap_rate = float("nan")
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _check_leaf_budget(self, start: BARKModel, params, n: int) -> None:
@@ -233,12 +248,35 @@ class BARKSurrogate(_BARKSurrogateBase):
             params = self.params.with_(warmup_steps=0)
         train_x, train_y = self.train_data
         self._check_leaf_budget(start, params, train_x.shape[0])
-        self.model = run_bark_sampler(
-            self._generator, start, train_x, train_y, self._bounds,
-            self._feat_types, params, mask=self.train_mask,
-        )
+        if self.fit_style == "tempered":
+            self.model = self._fit_tempered(start, params)
+        else:
+            self.model = run_bark_sampler(
+                self._generator, start, train_x, train_y, self._bounds,
+                self._feat_types, params, mask=self.train_mask,
+            )
         self._record_fit_diagnostics()
         return self
+
+    def _fit_tempered(self, start: BARKModel, params: SamplerParams) -> BARKModel:
+        """``num_chains`` PT ladders; each ladder's replicas start from its
+        chain's (warm-started) state, and its cold trace is thinned as the
+        plain sampler's: ``num_samples`` samples ``steps_per_sample`` apart
+        after ``warmup_steps`` rounds. Only those rounds are kept."""
+        train_x, train_y = self.train_data
+        r = self.num_replicas
+        num_steps = params.warmup_steps + params.num_samples * params.steps_per_sample
+        tile = lambda t: t[:, None].expand(t.shape[0], r, *t.shape[1:]).contiguous()  # noqa: E731
+        run = run_parallel_tempering(
+            self._generator, Forest(*(tile(t) for t in start.forest)), tile(start.noise),
+            tile(start.scale), train_x, train_y, self._bounds, self._feat_types, params,
+            num_replicas=r, num_steps=num_steps, beta_min=self.beta_min,
+            mask=self.train_mask,
+            keep=slice(params.warmup_steps + params.steps_per_sample - 1, None,
+                       params.steps_per_sample),
+        )
+        self._last_swap_rate = float(run.swap_rate.mean())
+        return run.samples
 
     def _record_fit_diagnostics(self):
         """Split-R-hat / ESS over the sampled noise trace."""
@@ -248,3 +286,35 @@ class BARKSurrogate(_BARKSurrogateBase):
             "ess_noise": float(effective_sample_size(noise)),
             "noise_mean": float(noise.mean()),
         }
+        if self.fit_style == "tempered":
+            self.fit_diagnostics["swap_rate"] = self._last_swap_rate
+
+
+class BARKPriorSurrogate(_BARKSurrogateBase):
+    """Prior-only ablation: ``num_samples`` forests and noises drawn from the
+    BARK prior (Gamma(2.5, 9) noise prior by default, scale fixed at 1); the
+    fit stores the data and draws, the posterior is the GP's under each
+    draw."""
+
+    def __init__(self, domain: Domain, params: SamplerParams | None = None,
+                 num_samples: int = 5, seed: int = 0, predict_backend: str = "auto",
+                 device=None):
+        params = params or SamplerParams(gamma_prior_shape=2.5, gamma_prior_rate=9.0)
+        super().__init__(domain, params, predict_backend=predict_backend, device=device)
+        self.num_samples = num_samples
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def fit(self, X, y):
+        check_matmul_precision()
+        self._store_train_data(X, y)
+        p = self.params
+        draws = draw_prior(self._generator, self.num_samples, p.num_trees, p.node_limit,
+                           p.gamma_prior_shape, self.device)
+        forest = sample_forest_prior(draws, p.num_trees, self._bounds, self._feat_types,
+                                     p.alpha, p.beta, p.node_limit, p.max_depth)
+        self.model = BARKModel(
+            forest=forest,
+            noise=sample_noise_prior(draws.gamma, p.gamma_prior_rate),
+            scale=torch.ones(self.num_samples, dtype=torch.float32, device=self.device),
+        )
+        return self

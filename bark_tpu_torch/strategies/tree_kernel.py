@@ -34,7 +34,11 @@ from bark_tpu_torch.domain import (
     IntegerInput,
 )
 from bark_tpu_torch.fitting.params import SamplerParams
-from bark_tpu_torch.models.surrogate import BARKSurrogate, _BARKSurrogateBase
+from bark_tpu_torch.models.surrogate import (
+    BARKPriorSurrogate,
+    BARKSurrogate,
+    _BARKSurrogateBase,
+)
 from bark_tpu_torch.optimizer.acquisition import (
     DEFAULT_KAPPA,
     LR_THRESHOLD,
@@ -56,7 +60,6 @@ logger = logging.getLogger(__name__)
 #: strategy names of the reference that the port does not have yet, with the
 #: ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "BARKPrior": "item 10 (fitting/prior.py and BARKPriorSurrogate)",
     "LeafGP": "item 10 (models/leafgp.py)",
     "LeafMOGP": "item 10 (models/mogp.py and strategies/multi_fidelity.py)",
     "BART": "item 10 (fitting/bart.py and models/bart.py)",
@@ -282,14 +285,18 @@ class RandomStrategy:
 
 
 def make_strategy(name: str, domain: Domain, seed: int = 0, device=None, **kwargs):
-    """Strategy registry: ``"BARK"`` / ``"TreeKernel"`` and ``"Random"``.
+    """Strategy registry: ``"BARK"`` / ``"TreeKernel"``, ``"BARKPrior"`` (the
+    BO loop on :class:`BARKPriorSurrogate`) and ``"Random"``.
 
-    ``device`` goes to the BARK strategy's surrogate (None = the CUDA
+    ``device`` goes to the BARK strategies' surrogate (None = the CUDA
     device); the random baseline touches no device. The reference's other
     names raise ``NotImplementedError`` until their modules are ported.
     """
     if name in ("BARK", "TreeKernel"):
         return TreeKernelStrategy(domain, seed=seed, device=device, **kwargs)
+    if name == "BARKPrior":
+        sur = BARKPriorSurrogate(domain, seed=seed, device=device)
+        return TreeKernelStrategy(domain, surrogate=sur, seed=seed, **kwargs)
     if name == "Random":
         return RandomStrategy(domain, seed=seed)
     if name in _NOT_PORTED:

@@ -100,15 +100,40 @@ in both of its tiers, in phases:
      budget. (b) five iterations at full width (dim=5, m=50, 4 chains x 8
      samples, 4096 candidates x 4 rounds, from 50 observations): seconds
      per iteration split into fit, build, score and centring, and both
-     kernels' launches per iteration against the count the code predicts.
+     kernels' launches per iteration against the count the code predicts;
+  9. tempered fitting: (a) parallel tempering (``run_parallel_tempering``) on the noiseless
+     TreeFunction(dim=5, m=50, seed=1) at N=512 (the data of
+     ``benchmarks/ab_tempered.py``), 4 ladders x 8 replicas = 32 chain rows
+     with a temperature each, 300 rounds from empty forests in the leaf tier
+     (R=256). Checks: every ladder's betas a permutation of the geometric
+     ladder in every round, a swap rate in (0, 1), a finite cold MLL, K2
+     once per init and round and K1 never, final leaves equal to a fresh
+     routing, the carried factor of A equal to a plain rebuild (relative
+     5e-4), a step at beta = 1 on every row equal to the plain step
+     (``torch.equal``), one round replayed on the CPU deciding alike (the
+     step up to near-ties, the swap exactly from the same MLLs), and K2 at
+     the round's (64, 256, 256) against its plain version. Printed: ms per
+     round and the share of ladders whose cold MLL passed the reference's
+     target 798.85. (b) SMC (``run_smc``) at N=200 in the dense tier, 64
+     particles from the prior, 16 rounds x 2 mutation steps. Checks: beta
+     non-decreasing and reaching 1, a finite log-evidence, weights summing
+     to 1 (1e-4), K1 and K2 each 1 + 16 x 2 times, one round replayed on the
+     CPU (beta within 1e-6, ancestors alike or parted at a reported near-tie,
+     each mutation step's decisions up to near-ties), K1 and K2 at the
+     mutation step's shapes against their plain versions. (c) three
+     full-width BO iterations (the configuration of 8 b) on
+     ``BARKSurrogate(fit_style="tempered", num_replicas=8)``: no fallback,
+     every ask in the domain, the launches the code predicts, a swap rate in
+     [0, 1]; seconds per iteration split as in 8 b.
 
-The whole run takes about six minutes of command time on an H100 (the sampler's
+The whole run takes about seven minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
 Prints what each phase found, then one JSON line with each kernel's launch
 count on the N=50 run and on each path ("launches_by_path": the sampler's
-four sizes, "predict", "acquisition" and "bo_iteration"), error, times
+four sizes, "predict", "acquisition", "bo_iteration", "tempered N=512", "smc
+N=200" and "tempered_bo"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -145,6 +170,9 @@ BIG_N = 4096  # observations of the leaf-space predict and the factored build
 BO_SEEDS = (0, 1, 2)
 BO_ITERATIONS = 45
 ORACLE_ATOL = ORACLE_RTOL = 1e-3  # float32 posterior against the float64 oracle
+PT_N, PT_LADDERS, PT_REPLICAS, PT_ROUNDS, BETA_MIN = 512, 4, 8, 300, 0.05
+SMC_N, SMC_PARTICLES, SMC_ROUNDS, SMC_MUTATIONS = 200, 64, 16, 2
+TEMPERED_BO_ITERATIONS = 3
 
 
 def log(msg: str) -> None:
@@ -162,43 +190,58 @@ def rel_err(torch, got, want) -> float:
     return (num / want.abs().amax((-2, -1))).max().item()
 
 
-def replay_on_cpu(torch, tag, state, X, y, bounds, ft, params, num_trees):
-    """One step on the card and on the CPU (plain versions) from the same
-    state and draws: each chain decides every move alike, or parts at a
-    near-tie (|log u - min(log a, 0)| < NEAR_TIE) after which it is not
-    compared further."""
-    from bark_tpu_torch.fitting.sampler import draw_step, step_with_info
-
-    chains = state.noise.shape[0]
-    draws = draw_step(torch.Generator().manual_seed(7), chains, params)
-    _, dev_info = step_with_info(state, X, y, bounds, ft, params, draws.to(X.device))
-    _, cpu_info = step_with_info(
-        state.to("cpu"), X.cpu(), y.cpu(), bounds.cpu(), ft.cpu(), params, draws,
-    )
-    # a chain's moves are sequential: after its first differing decision
-    # (which must be a near-tie) the two runs of that chain part ways
-    log_u = torch.log(draws.proposal.u_accept)
+def compare_decisions(torch, tag, draws, dev_info, cpu_info, num_trees, parted=None):
+    """Each chain decides every move of a step alike on the card and on the
+    CPU, or parts at a near-tie (|log u - min(log a, 0)| < NEAR_TIE) after
+    which it is not compared further. ``parted`` is the set of chains that
+    parted at an earlier step; returns it with this step's added."""
+    chains = dev_info.hyper_accept.shape[0]
+    parted = set() if parted is None else parted
+    log_u = torch.log(draws.proposal.u_accept.cpu())
     gap = (log_u - torch.clamp_max(cpu_info.tree_log_alpha, 0.0)).abs()
     differ = dev_info.tree_accepts.cpu() != cpu_info.tree_accepts
-    hyper_gap = (torch.log(draws.u_hyper)
+    hyper_gap = (torch.log(draws.u_hyper.cpu())
                  - torch.clamp_max(cpu_info.hyper_log_alpha, 0.0)).abs()
     hyper_differ = dev_info.hyper_accept.cpu() != cpu_info.hyper_accept
-    parted = 0
+    before = len(parted)
     for c in range(chains):
+        if c in parted:
+            continue
         js = torch.nonzero(differ[c]).flatten()
         if js.numel():
-            parted += 1
+            parted.add(c)
             j = int(js[0])
             require(gap[c, j].item() < NEAR_TIE,
                     f"{tag}: chain {c} move {j} decided differently on the card "
                     f"and the CPU away from a near-tie (gap {gap[c, j].item()})")
         elif hyper_differ[c]:
+            parted.add(c)
             require(hyper_gap[c].item() < NEAR_TIE,
                     f"{tag}: chain {c} noise move decided differently away "
                     f"from a near-tie (gap {hyper_gap[c].item()})")
-    log(f"[{tag}] card vs CPU replay of one step: {parted} of {chains} chains "
+    log(f"[{tag}] card vs CPU replay of one step: {len(parted) - before} of {chains} chains "
         f"parted at a near-tie, the rest decided all {num_trees} tree moves "
-        f"alike; noise moves differ in {int(hyper_differ.sum())} chains")
+        f"and the noise move alike")
+    return parted
+
+
+def replay_on_cpu(torch, tag, state, X, y, bounds, ft, params, num_trees, beta=1.0):
+    """One step on the card and on the CPU (plain versions) from the same
+    state and draws, at inverse temperature ``beta`` (a float or one per
+    chain): the decisions agree as :func:`compare_decisions` asks. Returns
+    the card's new state."""
+    from bark_tpu_torch.fitting.sampler import draw_step, step_with_info
+
+    chains = state.noise.shape[0]
+    draws = draw_step(torch.Generator().manual_seed(7), chains, params)
+    beta_cpu = beta.cpu() if torch.is_tensor(beta) else beta
+    new, dev_info = step_with_info(state, X, y, bounds, ft, params, draws.to(X.device),
+                                   beta=beta)
+    _, cpu_info = step_with_info(
+        state.to("cpu"), X.cpu(), y.cpu(), bounds.cpu(), ft.cpu(), params, draws, beta=beta_cpu,
+    )
+    compare_decisions(torch, tag, draws, dev_info, cpu_info, num_trees)
+    return new
 
 
 def oracle_posterior(torch, train_leaves, cand_leaves, mask, y, noise, scale, n_null=None):
@@ -553,16 +596,92 @@ def phase_predict_acquisition(torch, dev, smi, tf):
     return launches, times
 
 
+def full_width_iterations(torch, s, bench, iterations, rounds, steps, tag):
+    """``iterations`` BO iterations (``ask`` + ``add``, the refit included)
+    of strategy ``s``, each timed and split into fit, build, score and
+    centring; both kernels' launches per iteration must be what the code
+    predicts: the refit K1 and K2 once per init and round (``steps`` + 1),
+    a dense build 1 + 1, a K1 call per scored batch, 7 K2 launches a
+    Thompson build (r = 1600). Returns (launches of the last iteration,
+    medians of the parts in seconds)."""
+    import bark_tpu_torch.optimizer.search as search
+    import bark_tpu_torch.strategies.tree_kernel as tk
+    from bark_tpu_torch.ops.chol import chol_inv_cuda
+    from bark_tpu_torch.ops.gram import gram_cuda
+    from bark_tpu_torch.ops.linalg import robust_cholesky
+
+    lo, hi = bench.domain.bounds("ordinal").T
+    spent = {"build": 0.0, "score": 0.0, "centre": 0.0}
+    calls = {"dense": 0, "ts": 0}
+
+    def clocked(part, fn, tally=None):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[part] += time.perf_counter() - t0
+            if tally:
+                calls[tally] += 1
+            return out
+        return run
+
+    patched = [
+        (tk, "build_acquisition", clocked("build", tk.build_acquisition, "dense")),
+        (tk, "build_acquisition_ts", clocked("build", tk.build_acquisition_ts, "ts")),
+        (search, "evaluate_acquisition", clocked("score", search.evaluate_acquisition)),
+        (search, "_leaf_box", clocked("centre", search._leaf_box)),
+        (search, "_box_center", clocked("centre", search._box_center)),
+    ]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    rows, per_iter = [], None
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        for i in range(iterations):
+            for k in spent:
+                spent[k] = 0.0
+            calls["dense"] = calls["ts"] = 0
+            gram_cuda.launches = chol_inv_cuda.launches = robust_cholesky.escalations = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = s.ask(1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s.add(c, bench.f(c))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            require(bool((lo <= c[0]).all() and (c[0] <= hi).all()),
+                    f"{tag} iteration {i}: the ask lies in the domain")
+            per_iter = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+            # fit: init + every refresh; dense build: 1 + 1; dense search: a K1
+            # call per scored batch; a Thompson build: 7 K2 launches (r = 1600)
+            want = {
+                "gram": steps + 1 + calls["dense"] * (1 + 1 + rounds),
+                "chol_inv": steps + 1 + calls["dense"] + 7 * calls["ts"]
+                + robust_cholesky.escalations,
+            }
+            require(per_iter == want, f"{tag} iteration {i}: launches {per_iter}, "
+                                      f"the code predicts {want} ({calls})")
+            rows.append({"ask_s": t1 - t0, "fit_s": t2 - t1, **spent})
+            log(f"[{tag}] iteration {i}: {t2 - t0:.2f} s = fit {t2 - t1:.2f} + ask "
+                f"{t1 - t0:.2f} (build {spent['build']:.3f}, score {spent['score']:.3f}, "
+                f"centring {spent['centre']:.3f}); builds {calls}; launches {per_iter}")
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    require(s.fallbacks == 0, f"{tag}: no random fallback ({s.fallbacks})")
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    return per_iter, med
+
+
 def phase_bo_loop(torch, dev, smi):
     """Phase 8 (see the module docstring). Returns the launches of one
     full-width BO iteration."""
-    import bark_tpu_torch.optimizer.search as search
-    import bark_tpu_torch.strategies.tree_kernel as tk
     from bark_tpu_torch.benchmarks import map_benchmark
     from bark_tpu_torch.fitting.params import SamplerParams
     from bark_tpu_torch.ops.chol import chol_inv_cuda
     from bark_tpu_torch.ops.gram import gram_cuda
-    from bark_tpu_torch.ops.linalg import robust_cholesky
     from bark_tpu_torch.strategies.tree_kernel import make_strategy
 
     # (a) the documented flow, on the default device
@@ -615,7 +734,6 @@ def phase_bo_loop(torch, dev, smi):
 
     # (b) five iterations at full width, split by part
     bench = map_benchmark("TreeFunction", dim=5, m=50, function_seed=1)
-    lo, hi = bench.domain.bounds("ordinal").T
     params = SamplerParams(num_chains=4, num_samples=8, steps_per_sample=5, warmup_steps=50)
     steps = params.num_samples * params.steps_per_sample
     rounds = 4
@@ -623,73 +741,258 @@ def phase_bo_loop(torch, dev, smi):
                       num_rounds=rounds)
     X = bench.domain.sample(50, np.random.default_rng(0))
     s.tell(X, bench.f(X))
-    spent = {"build": 0.0, "score": 0.0, "centre": 0.0}
-    calls = {"dense": 0, "ts": 0}
-
-    def clocked(part, fn, tally=None):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[part] += time.perf_counter() - t0
-            if tally:
-                calls[tally] += 1
-            return out
-        return run
-
-    patched = [
-        (tk, "build_acquisition", clocked("build", tk.build_acquisition, "dense")),
-        (tk, "build_acquisition_ts", clocked("build", tk.build_acquisition_ts, "ts")),
-        (search, "evaluate_acquisition", clocked("score", search.evaluate_acquisition)),
-        (search, "_leaf_box", clocked("centre", search._leaf_box)),
-        (search, "_box_center", clocked("centre", search._box_center)),
-    ]
-    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
-    rows, per_iter = [], None
-    try:
-        for mod, name, fn in patched:
-            setattr(mod, name, fn)
-        for i in range(5):
-            for k in spent:
-                spent[k] = 0.0
-            calls["dense"] = calls["ts"] = 0
-            gram_cuda.launches = chol_inv_cuda.launches = robust_cholesky.escalations = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            c = s.ask(1)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            s.add(c, bench.f(c))
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            require(bool((lo <= c[0]).all() and (c[0] <= hi).all()),
-                    f"full-width BO iteration {i}: the ask lies in the domain")
-            per_iter = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
-            # fit: init + every refresh; dense build: 1 + 1; dense search: a K1
-            # call per scored batch; a Thompson build: 7 K2 launches (r = 1600)
-            want = {
-                "gram": steps + 1 + calls["dense"] * (1 + 1 + rounds),
-                "chol_inv": steps + 1 + calls["dense"] + 7 * calls["ts"]
-                + robust_cholesky.escalations,
-            }
-            require(per_iter == want, f"full-width BO iteration {i}: launches {per_iter}, "
-                                      f"the code predicts {want} ({calls})")
-            rows.append({"ask_s": t1 - t0, "fit_s": t2 - t1, **spent})
-            log(f"[BO full width] iteration {i}: {t2 - t0:.2f} s = fit {t2 - t1:.2f} + ask "
-                f"{t1 - t0:.2f} (build {spent['build']:.3f}, score {spent['score']:.3f}, "
-                f"centring {spent['centre']:.3f}); builds {calls}; launches {per_iter}")
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    require(s.fallbacks == 0, f"full-width BO: no random fallback ({s.fallbacks})")
-    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    per_iter, med = full_width_iterations(torch, s, bench, 5, rounds, steps, "BO full width")
     log(f"[BO full width] dim 5, m 50, S={params.num_chains * params.num_samples}, {ACQ_BATCH} "
         f"candidates x {rounds + 1} batches, N=50-54 (bucket 64), medians of 5 on {smi}: "
         f"{med['ask_s'] + med['fit_s']:.2f} s per iteration = fit {med['fit_s']:.2f} + build "
         f"{med['build']:.3f} + score {med['score']:.3f} + centring {med['centre']:.3f} + other "
         f"{med['ask_s'] - med['build'] - med['score'] - med['centre']:.3f}")
     return per_iter
+
+
+def phase_tempered(torch, dev, smi):
+    """Phase 9 (see the module docstring). Returns the launches by path and
+    the kernel times at the new shapes."""
+    import bark_tpu_torch.strategies.tree_kernel as tk
+    from bark_tpu_torch.benchmarks import map_benchmark
+    from bark_tpu_torch.benchmarks.ab_tempered import REFERENCE_TARGET, make_data
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior
+    from bark_tpu_torch.fitting.sampler import (
+        _leaf_budget, _leaf_Z, draw_step, init_chain_state, step_with_info,
+    )
+    from bark_tpu_torch.forest import create_empty_forest, route_forest
+    from bark_tpu_torch.models.surrogate import BARKSurrogate
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
+    from bark_tpu_torch.ops.linalg import JITTER, kernel_matrix
+    from bark_tpu_torch.parallel.smc import draw_smc_round, run_smc, smc_round
+    from bark_tpu_torch.parallel.tempering import geometric_ladder, run_parallel_tempering, swap_move
+
+    def zero():
+        gram_cuda.launches = chol_inv_cuda.launches = 0
+
+    def counts():
+        return {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+
+    launches, times = {}, {}
+
+    # ---- (a) parallel tempering at N = 512, leaf tier
+    X, y, bounds, ft = make_data(torch, dev, PT_N)
+    params = SamplerParams(num_trees=SLICE_TREES)
+    shape, rows = (PT_LADDERS, PT_REPLICAS), PT_LADDERS * PT_REPLICAS
+    budget = _leaf_budget(params, PT_N)
+    blocks = -(-budget // MAX_BLOCK)
+    gen = torch.Generator(device=dev).manual_seed(PT_N)
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = run_parallel_tempering(
+        gen, create_empty_forest(SLICE_TREES, params.node_limit, shape, dev),
+        torch.full(shape, 0.1, device=dev), torch.ones(shape, device=dev), X, y, bounds, ft,
+        params, num_replicas=PT_REPLICAS, num_steps=PT_ROUNDS, beta_min=BETA_MIN,
+        keep=slice(-1, None))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = counts()
+    launches[f"tempered N={PT_N}"] = c
+    require(c == {"gram": 0, "chol_inv": blocks * (PT_ROUNDS + 1)},
+            f"PT at N={PT_N} (leaf tier, R={budget}): no K1 call and {blocks} K2 launch(es) "
+            f"per init and round ({blocks * (PT_ROUNDS + 1)}), got {c}")
+    ladder = torch.sort(geometric_ladder(PT_REPLICAS, BETA_MIN, dev)).values
+    require(torch.equal(torch.sort(run.betas, -1).values, ladder.expand_as(run.betas)),
+            "PT: every ladder's betas are a permutation of the ladder in every round")
+    swap = run.swap_rate.mean().item()
+    require(0.0 < swap < 1.0, f"PT: swap rate {swap} in (0, 1)")
+    require(bool(torch.isfinite(run.cold_mll[:, -1]).all()), "PT: the cold MLL is finite")
+    passed = (run.cold_mll >= REFERENCE_TARGET).any(1).float().mean().item()
+    state = run.state.chains
+    require(torch.equal(route_forest(state.forest, X, ft), state.leaves),
+            "PT: final leaves equal a fresh routing")
+    ones = torch.ones(PT_N, device=dev)
+    Z, _ = _leaf_Z(state.forest, state.leaves, budget, ones)
+    eye = torch.eye(budget, device=dev)
+    ratio = (JITTER + state.noise) / (state.scale / SLICE_TREES)
+    Lr = torch.linalg.cholesky(Z.transpose(1, 2) @ Z + ratio[:, None, None] * eye)
+    err = rel_err(torch, state.kern.L, Lr)
+    require(err <= REL_BOUND, f"PT: carried |L - rebuild| / max |L| = {err} <= {REL_BOUND}")
+    log(f"[PT N={PT_N}] {PT_LADDERS} ladders x {PT_REPLICAS} replicas = {rows} rows, leaf "
+        f"tier R={budget}: {PT_ROUNDS} rounds from empty forests in {dt:.2f} s = "
+        f"{dt / PT_ROUNDS * 1e3:.1f} ms a round (init included) on {smi}; launches {c}; "
+        f"swap rate {swap:.4f}; cold MLL at the end {run.cold_mll[:, -1].tolist()}; "
+        f"{passed:.2f} of the ladders passed the reference's target {REFERENCE_TARGET:.2f}; "
+        f"leaves == fresh routing; |L - rebuild|/max|L| {err:.3e}")
+
+    # beta = 1 on every row is the plain step, bit for bit
+    draws = draw_step(torch.Generator(device=dev).manual_seed(11), rows, params, dev)
+    plain, _ = step_with_info(state, X, y, bounds, ft, params, draws)
+    cold, _ = step_with_info(state, X, y, bounds, ft, params, draws,
+                             beta=torch.ones(rows, device=dev))
+    require(all(torch.equal(a, b) for a, b in zip(plain.forest, cold.forest))
+            and torch.equal(plain.leaves, cold.leaves) and torch.equal(plain.mll, cold.mll),
+            "PT: a step at beta = 1 on every row equals the plain step")
+    # one round replayed on the CPU: the tempered step decides alike, and
+    # the swap decides alike from the same MLLs
+    new = replay_on_cpu(torch, f"PT N={PT_N}", state, X, y, bounds, ft, params, SLICE_TREES,
+                        beta=run.state.betas.reshape(-1))
+    u = torch.rand(shape, generator=torch.Generator().manual_seed(12))
+    mlls = new.mll.reshape(shape)
+    parity = PT_ROUNDS % 2
+    on_card = swap_move(u.to(dev), run.state.betas, mlls, parity)
+    require(torch.equal(on_card.cpu(), swap_move(u, run.state.betas.cpu(), mlls.cpu(), parity)),
+            "PT: the swap decides alike on the card and the CPU")
+    # K2 at the round's shape: both configurations of every row's A
+    A = Z.transpose(1, 2) @ Z + ratio[:, None, None] * eye
+    A2 = torch.cat([A, Z.transpose(1, 2) @ Z + 1.05 * ratio[:, None, None] * eye]).contiguous()
+    L, E = chol_inv_cuda(A2)
+    Lp, _ = chol_inv_plain(A2)
+    err = rel_err(torch, L, Lp)
+    resid = (E @ L - torch.eye(budget, device=dev)).abs().max().item()
+    require(err <= REL_BOUND and resid <= 5e-4,
+            f"K2 at the PT shape {tuple(A2.shape)}: |L - L_plain| / max {err}, |E L - I| {resid}")
+    t = time_k2(torch, lambda: chol_inv_cuda(A2), lambda: chol_inv_plain(A2), A2.shape[0],
+                budget, "chol_inv_kernel")
+    name = f"({A2.shape[0]},{budget},{budget}) PT"
+    times[("chol_inv", name)] = t
+    log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; device "
+        f"{t['device_ms']:.5f} ms, call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / "
+        f"{t['library_ms']} device (cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+        f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+    del run, state, new, Z, A, A2, L, E, Lp, Lr
+
+    # ---- (b) SMC at N = 200, dense tier
+    tf = map_benchmark("TreeFunction", dim=5, m=SLICE_TREES, function_seed=1)
+    X_np = tf.domain.sample(SMC_N, np.random.default_rng(0))
+    y_np = tf.f(X_np)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor((y_np - y_np.mean()) / y_np.std(), dtype=torch.float32, device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SMC_N)
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_smc(gen, X, y, bounds, ft, params, num_particles=SMC_PARTICLES,
+                  num_rounds=SMC_ROUNDS, mutation_steps=SMC_MUTATIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = counts()
+    launches[f"smc N={SMC_N}"] = c
+    want = 1 + SMC_ROUNDS * SMC_MUTATIONS
+    require(c == {"gram": want, "chol_inv": want},
+            f"SMC at N={SMC_N} (dense tier): K1 and K2 once per init and mutation step "
+            f"({want}), got {c}")
+    betas = res.betas.cpu()
+    require(bool((betas[1:] >= betas[:-1]).all()) and betas[-1].item() == 1.0,
+            f"SMC: beta non-decreasing and reaching 1: {betas.tolist()}")
+    require(bool(torch.isfinite(res.log_evidence)), "SMC: finite log-evidence")
+    w_sum = torch.exp(res.log_weights).sum().item()
+    require(abs(w_sum - 1.0) <= 1e-4, f"SMC: weights sum to 1 ({w_sum})")
+    # the prior alone, for its share of the run
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prior = draw_prior(gen, SMC_PARTICLES, SLICE_TREES, params.node_limit,
+                       params.gamma_prior_shape, dev)
+    sample_forest_prior(prior, SLICE_TREES, bounds, ft, params.alpha, params.beta,
+                        params.node_limit, params.max_depth)
+    torch.cuda.synchronize()
+    prior_s = time.perf_counter() - t1
+    log(f"[SMC N={SMC_N}] {SMC_PARTICLES} particles from the prior, {SMC_ROUNDS} rounds x "
+        f"{SMC_MUTATIONS} mutation steps in {dt:.2f} s (the prior {prior_s:.3f} s) on {smi}; "
+        f"launches {c}; betas {[round(b, 4) for b in betas.tolist()]}; ESS "
+        f"{[round(e, 1) for e in res.ess_trace.tolist()]}; log-evidence "
+        f"{res.log_evidence.item():.3f}; weights sum {w_sum:.6f}")
+
+    # one round replayed on the CPU from the final particles, at beta 0.5 and
+    # a resample threshold that makes it resample
+    chains = init_chain_state(res.model.forest, res.model.noise, res.model.scale, X, y, ft,
+                              params, bounds=bounds)
+    draws = draw_smc_round(torch.Generator().manual_seed(13), SMC_PARTICLES, SMC_MUTATIONS,
+                           params)
+    args = dict(target_ess=0.6, resample_threshold=0.9)
+    half = torch.tensor(0.5)
+    log_w = torch.zeros(SMC_PARTICLES)
+    on_card = smc_round(chains, half.to(dev), log_w.to(dev), torch.zeros((), device=dev),
+                        draws.to(dev), X, y, bounds, ft, params, **args)
+    on_cpu = smc_round(chains.to("cpu"), half, log_w, torch.zeros(()), draws, X.cpu(), y.cpu(),
+                       bounds.cpu(), ft.cpu(), params, **args)
+    require(abs(on_card.beta.item() - on_cpu.beta.item()) <= 1e-6,
+            f"SMC replay: beta {on_card.beta.item()} on the card, {on_cpu.beta.item()} on the CPU")
+    if torch.equal(on_card.ancestors.cpu(), on_cpu.ancestors):
+        parted = set()
+        for k, step_draws in enumerate(draws.steps):
+            parted = compare_decisions(torch, f"SMC replay step {k}", step_draws,
+                                       on_card.infos[k], on_cpu.infos[k], SLICE_TREES, parted)
+    else:
+        w = torch.softmax((on_cpu.beta - half) * chains.mll.cpu(), 0)
+        pos = (torch.arange(SMC_PARTICLES) + draws.u_resample) / SMC_PARTICLES
+        tie = (torch.cumsum(w, 0)[:, None] - pos[None, :]).abs().min().item()
+        require(tie < 1e-6, f"SMC replay: ancestors differ away from a tie ({tie})")
+        log(f"[SMC replay] ancestors part at a near-tie ({tie:.2e}); steps not compared")
+    log(f"[SMC replay] one round at beta 0.5 -> {on_card.beta.item():.6f}: resampled "
+        f"{not torch.equal(on_cpu.ancestors, torch.arange(SMC_PARTICLES))}, ancestors alike")
+
+    # both kernels at the mutation step's shapes
+    leaves = chains.leaves.contiguous()
+    unit = torch.ones(SMC_N, device=dev)
+    got = gram_cuda(leaves, leaves, unit, unit, params.node_limit)
+    require(torch.equal(got, gram_plain(leaves, leaves, unit, unit)),
+            f"K1 at the SMC shape {tuple(got.shape)} equals its plain version")
+    t = time_k1(torch, gram_module, leaves, leaves, unit, unit, params.node_limit)
+    name = f"({SMC_PARTICLES},{SMC_N},{SMC_N}) SMC"
+    times[("gram", name)] = t
+    log(f"[K1] {name} symmetric: exact; device {t['device_ms']} ms ({t['kernels_per_call']} "
+        f"kernels a call), call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+        f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+        f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+    K = torch.cat([kernel_matrix(got, chains.noise * f, chains.scale) for f in (1.0, 1.1)])
+    K = K.contiguous()
+    L, E = chol_inv_cuda(K)
+    Lp, _ = chol_inv_plain(K)
+    err_l = (L - Lp).abs().max().item()
+    resid = (E @ L - torch.eye(SMC_N, device=dev)).abs().max().item()
+    require(err_l <= 1e-4 and resid <= 5e-4,
+            f"K2 at the SMC shape {tuple(K.shape)}: |L - L_plain| {err_l}, |E L - I| {resid}")
+    t = time_k2(torch, lambda: chol_inv_cuda(K), lambda: chol_inv_plain(K), K.shape[0], SMC_N,
+                "chol_inv_kernel")
+    name = f"({K.shape[0]},{SMC_N},{SMC_N}) SMC"
+    times[("chol_inv", name)] = t
+    log(f"[K2] {name}: |L-L_plain| {err_l:.3e}, |EL-I| {resid:.3e}; device "
+        f"{t['device_ms']:.5f} ms, call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / "
+        f"{t['library_ms']} device (cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+        f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+    del res, chains, on_card, on_cpu, K, L, E, Lp
+
+    # ---- (c) a tempered BO loop at full width
+    bo_params = SamplerParams(num_chains=4, num_samples=8, steps_per_sample=5, warmup_steps=50)
+    rounds = 4
+    sur = BARKSurrogate(tf.domain, bo_params, seed=0, fit_style="tempered",
+                        num_replicas=PT_REPLICAS)
+    s = tk.TreeKernelStrategy(tf.domain, surrogate=sur, seed=0, num_candidates=ACQ_BATCH,
+                              num_rounds=rounds)
+    require(s.device.type == "cuda", "the tempered strategy runs on the card")
+    X0 = tf.domain.sample(50, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.tell(X0, tf.f(X0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    steps = bo_params.num_samples * bo_params.steps_per_sample
+    per_iter, med = full_width_iterations(torch, s, tf, TEMPERED_BO_ITERATIONS, rounds, steps,
+                                          "tempered BO")
+    launches["tempered_bo"] = per_iter
+    diag = sur.fit_diagnostics
+    require(0.0 <= diag["swap_rate"] <= 1.0, f"tempered BO: swap rate {diag['swap_rate']}")
+    log(f"[tempered BO] dim 5, m 50, {bo_params.num_chains} ladders x {PT_REPLICAS} replicas, "
+        f"S={bo_params.num_chains * bo_params.num_samples}, {ACQ_BATCH} candidates x "
+        f"{rounds + 1} batches, N=50-52 (bucket 64), first fit ({bo_params.warmup_steps + steps} "
+        f"rounds) {first_s:.2f} s; medians of {TEMPERED_BO_ITERATIONS} on {smi}: "
+        f"{med['ask_s'] + med['fit_s']:.2f} s per iteration = fit {med['fit_s']:.2f} + build "
+        f"{med['build']:.3f} + score {med['score']:.3f} + centring {med['centre']:.3f}; "
+        f"{diag}")
+    return launches, times
 
 
 def main() -> int:
@@ -1114,6 +1417,11 @@ def main() -> int:
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t
     launches["bo_iteration"] = phase_bo_loop(torch, dev, smi)
+    # --- 9. tempered fitting ---------------------------------------------------
+    path_launches, path_times = phase_tempered(torch, dev, smi)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
 
     k1 = k1_times[f"({SLICE_CHAINS},50,50)"]
     k2 = k2_times["(128,50,50)"]

@@ -313,8 +313,9 @@ def test_fit_warm_starts_and_records_diagnostics(monkeypatch):
 
 
 def test_device_must_be_asked_for():
-    """No CUDA here: the default device raises; unported options name their
-    ROADMAP item."""
+    """No CUDA here: the default device raises; the tempered fit style is
+    taken, an unknown one refused, and unported options name their ROADMAP
+    item."""
     dom = domain_from_reference(mixed_domain())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -322,8 +323,11 @@ def test_device_must_be_asked_for():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BARKSurrogate(dom, fit_style="tempered", device="cpu")
+    tempered = BARKSurrogate(dom, fit_style="tempered", num_replicas=3, beta_min=0.1,
+                             device="cpu")
+    assert (tempered.fit_style, tempered.num_replicas, tempered.beta_min) == ("tempered", 3, 0.1)
+    with pytest.raises(ValueError, match="fit_style"):
+        BARKSurrogate(dom, fit_style="annealed", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BARKSurrogate(dom, predict_backend="cg", device="cpu")
     with pytest.raises(ValueError):

@@ -33,6 +33,8 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.optimizer.acquisition, bark_tpu_torch.optimizer.search\n"
         "import bark_tpu_torch.strategies.capabilities, bark_tpu_torch.strategies.tree_kernel\n"
         "import bark_tpu_torch.utils.diagnostics, bark_tpu_torch.benchmarks.kernel_timing\n"
+        "import bark_tpu_torch.fitting.prior, bark_tpu_torch.parallel.tempering\n"
+        "import bark_tpu_torch.parallel.smc, bark_tpu_torch.benchmarks.ab_tempered\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -318,10 +318,15 @@ def test_ask_before_data_and_random_strategy():
 
 def test_make_strategy_names_and_device():
     _, td = domains()
-    for name in ("BARKPrior", "LeafGP", "LeafMOGP", "BART", "BARTGrid", "GridUCB",
+    for name in ("LeafGP", "LeafMOGP", "BART", "BARTGrid", "GridUCB",
                  "RelaxedSobo", "Sobo", "RelaxedGP", "SMAC", "Entmoot"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             tk.make_strategy(name, td, device="cpu")
+    prior = tk.make_strategy("BARKPrior", td, seed=2, device="cpu")
+    assert isinstance(prior.surrogate, tk.BARKPriorSurrogate)
+    assert prior.device == torch.device("cpu") and prior.surrogate.num_samples == 5
+    assert (prior.surrogate.params.gamma_prior_shape, prior.surrogate.params.gamma_prior_rate) == (
+        2.5, 9.0)
     with pytest.raises(KeyError):
         tk.make_strategy("Nope", td, device="cpu")
     if not torch.cuda.is_available():
