@@ -16,7 +16,9 @@ Two times, in milliseconds per call:
 
 - ``device_ms``: the kernels' own duration from ``torch.profiler`` (the sum
   of the matching device kernels over ``calls`` calls, divided by calls;
-  ``kernel_ms`` splits it by kernel);
+  ``kernel_ms`` splits it by kernel). Where every profiler capture misses
+  the kernels, CUDA events around ``calls`` calls queued behind a device
+  spin take its place (``event_ms``), and ``device_source`` says which;
 - ``call_ms``: the median over 25 repetitions of CUDA events around 10
   calls back to back, the host's enqueueing included.
 
@@ -33,6 +35,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
@@ -109,6 +112,53 @@ def device_ms(torch, fn, match: str | None = None, calls: int = 20,
             print(f"kernel_timing: {err}; capturing again", file=sys.stderr, flush=True)
 
 
+def event_ms(torch, fn, calls: int = 20, reps: int = 3) -> float:
+    """ms per call from CUDA events around ``calls`` calls, the median of
+    ``reps``. A device spin (``torch.cuda._sleep``) ahead of the start event
+    lasts twice the host's time to queue the calls, so the events time the
+    device running them back to back, not the host launching them. It
+    covers every kernel ``fn`` launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    khz = getattr(torch.cuda.get_device_properties(torch.cuda.current_device()),
+                  "clock_rate", 0) or 2_000_000
+    spin = min(int(2 * host_s * khz * 1e3) + 1_000_000, 2_000_000_000)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def kernel_time(torch, fn, match: str | None = None, launches: int | None = None):
+    """(ms per call, kernels per call, {kernel: ms}, source): ``device_ms``,
+    or ``event_ms`` where every profiler capture came up short or empty
+    (kernels per call is then ``launches``, the split empty). ``source`` is
+    "profiler" or "events"."""
+    try:
+        got = device_ms(torch, fn, match, launches=launches)
+        if got[0] is not None:
+            return (*got, "profiler")
+        err = f"the profiler captured no device kernel ({match or 'any'})"
+    except RuntimeError as exc:
+        err = str(exc)
+    print(f"kernel_timing: {err}; timing with CUDA events", file=sys.stderr, flush=True)
+    return event_ms(torch, fn), launches, {}, "events"
+
+
 def summarise_events(events, calls: int, match: str | None = None,
                      launches: int | None = None):
     """Device time per call from profiler averages (``key_averages()``:
@@ -172,7 +222,7 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
     symmetric = l1 is l2 and mask1 is mask2
     run = lambda: gram.gram_cuda(l1, l2, mask1, mask2)  # noqa: E731
     # a plane pass per distinct leaves tensor, then the Gram kernel
-    dev, per_call, split = device_ms(torch, run, "gram", launches=(1 if l1 is l2 else 2) + 1)
+    dev, per_call, split, source = kernel_time(torch, run, "gram", (1 if l1 is l2 else 2) + 1)
     call = call_ms(torch, run)
     plain = call_ms(torch, lambda: gram.gram_plain(l1, l2, mask1, mask2),
                     reps=plain_reps, inner=plain_inner, warmup=2)
@@ -184,13 +234,14 @@ def time_k1(torch, gram, l1, l2, mask1, mask2, node_limit: int,
     if not torch.equal(counts.float(), want):
         raise RuntimeError(f"one-hot bmm counts differ from the plain version at {tuple(l1.shape)}")
     # at least one device kernel a call: an empty capture is taken again
-    lib_dev, _, _ = device_ms(torch, lambda: torch.bmm(a, bt), launches=1)
+    lib_dev, _, _, lib_source = kernel_time(torch, lambda: torch.bmm(a, bt), launches=1)
     del a, bt, counts
     bound_ms, bound_by = k1_bound(b, n, mcols, m, symmetric, mask1 is not None)
     return {
         "shape": [b, n, mcols], "m": m, "symmetric": symmetric,
         "device_ms": dev, "kernels_per_call": per_call, "kernel_ms": split,
         "call_ms": call, "plain_ms": plain, "library_ms": lib_dev,
+        "device_source": source, "library_source": lib_source,
         "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / dev,
     }
 
@@ -204,14 +255,15 @@ def time_k2(torch, fn, plain_fn, batch: int, n: int, match: str | None = None,
     kernels of one call (one K2 launch when ``match`` names K2)."""
     if launches is None and match is not None:
         launches = 1
-    dev, per_call, _ = device_ms(torch, fn, match, launches=launches)
+    dev, per_call, _, source = kernel_time(torch, fn, match, launches)
     call = call_ms(torch, fn, reps=reps, inner=inner)
     plain = call_ms(torch, plain_fn, reps=reps, inner=inner)
-    lib, _, _ = device_ms(torch, plain_fn, launches=1)
+    lib, _, _, lib_source = kernel_time(torch, plain_fn, launches=1)
     bound_ms, bound_by = k2_bound(batch, n)
     return {
         "shape": [batch, n, n], "device_ms": dev, "kernels_per_call": per_call,
         "call_ms": call, "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
+        "device_source": source, "library_source": lib_source,
         "bound_by": bound_by, "share_of_bound": None if dev is None else bound_ms / dev,
     }
 

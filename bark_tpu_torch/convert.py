@@ -5,6 +5,10 @@ read by field name through ``numpy.asarray`` (a JAX array converts without
 this module importing JAX), and numpy dicts work the same way. The
 reference objects carry the chain dimension the port's state has (the
 reference ``vmap``-s over chains). :func:`to_numpy` goes the other way.
+
+``device=None`` means the CUDA device, and raises without one, as
+everywhere in the port (:func:`~bark_tpu_torch.models.surrogate.resolve_device`);
+pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from bark_tpu_torch import domain as port_domain
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.sampler import BARKModel, ChainState, KernState
 from bark_tpu_torch.forest import FOREST_FIELDS, Forest, forest_from_numpy
-from bark_tpu_torch.models.surrogate import BARKPriorSurrogate, BARKSurrogate
+from bark_tpu_torch.models.surrogate import BARKPriorSurrogate, BARKSurrogate, resolve_device
 from bark_tpu_torch.optimizer.acquisition import (
     AcquisitionState,
     AcquisitionStateLR,
@@ -33,7 +37,7 @@ def _get(obj, name):
 
 
 def _tensor(a, dtype, device):
-    return torch.as_tensor(np.array(a), dtype=dtype).to(device)
+    return torch.as_tensor(np.array(a), dtype=dtype).to(resolve_device(device))
 
 
 def params_from_reference(params) -> SamplerParams:
@@ -43,7 +47,9 @@ def params_from_reference(params) -> SamplerParams:
 
 def forest_from_reference(forest, device=None) -> Forest:
     """A reference Forest (or dict of its fields)."""
-    return forest_from_numpy({k: np.asarray(_get(forest, k)) for k in FOREST_FIELDS}, device)
+    return forest_from_numpy(
+        {k: np.asarray(_get(forest, k)) for k in FOREST_FIELDS}, resolve_device(device)
+    )
 
 
 def model_from_reference(model, device=None) -> BARKModel:
@@ -56,25 +62,30 @@ def model_from_reference(model, device=None) -> BARKModel:
 
 
 def chain_state_from_reference(state, device=None) -> ChainState:
-    """A reference ChainState of either tier (the subspace placeholder is
-    not read).
+    """A reference ChainState of either tier or of the chol backend (the
+    subspace placeholder is not read).
 
     Dense tier: its KernState carries K_inv and K_logdet. Leaf tier: K_inv
     is a zero-size placeholder and the K slot holds the factor L of A, the
     port's ``KernState.L`` (a dict may name it ``K`` or ``L``; without a
-    non-empty ``K_inv`` it reads as the leaf tier).
+    non-empty ``K_inv`` it reads as the leaf tier). Chol backend: K_inv and
+    K_logdet are both zero-size placeholders and the K slot holds the
+    kernel matrix, the port's ``KernState.K``.
     """
     f32 = torch.float32
     kern = _get(state, "kern")
     fields = {
         k: np.asarray(v) for k, v in (kern if isinstance(kern, dict) else kern._asdict()).items()
     }
-    K_logdet = _tensor(fields["K_logdet"], f32, device)
-    if fields.get("K_inv", np.empty(0)).size:
-        kern = KernState(K_inv=_tensor(fields["K_inv"], f32, device), K_logdet=K_logdet)
+    if not fields["K_logdet"].size:
+        kern = KernState(K_inv=None, K_logdet=None, K=_tensor(fields["K"], f32, device))
+    elif fields.get("K_inv", np.empty(0)).size:
+        kern = KernState(K_inv=_tensor(fields["K_inv"], f32, device),
+                         K_logdet=_tensor(fields["K_logdet"], f32, device))
     else:
         L = fields["L"] if "L" in fields else fields["K"]
-        kern = KernState(K_inv=None, K_logdet=K_logdet, L=_tensor(L, f32, device))
+        kern = KernState(K_inv=None, K_logdet=_tensor(fields["K_logdet"], f32, device),
+                         L=_tensor(L, f32, device))
     return ChainState(
         forest=forest_from_reference(_get(state, "forest"), device),
         leaves=_tensor(_get(state, "leaves"), torch.int32, device),

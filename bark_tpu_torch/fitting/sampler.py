@@ -13,6 +13,13 @@ picks by padded N as the reference does:
     compact leaf indicator of the forest (``K = gamma Z Z^T + nu I``,
     nu = jitter + noise, gamma = scale/m) and R the leaf budget.
 
+Beside them, ``kernel_backend="chol"`` is the reference's drift-free
+oracle at any N: it carries K (C, N, N) itself, adds each move's exact
+kernel delta and factors K by K2 (through ``blocked_cholesky``) once per
+move and once for the noise move. It is slow, and it is what the shipped
+tiers are judged against at stationarity
+(``bark_tpu_torch/benchmarks/stationary.py``).
+
 Every tensor carries a leading chain dimension (the reference ``vmap``-ed
 over chains) and the sequential move scan is a Python loop over the m
 trees, all chains in lockstep.
@@ -78,11 +85,9 @@ from bark_tpu_torch.ops.linalg import (
 
 #: the lowerings the port runs: the dense tier and the leaf tier
 _TIERS = (("plain", "onesolve"), ("coeff", "leaf"))
-_SHIPPED = {
-    "kernel_backend": "rank1",
-    "hot_style": "walk_select",
-    "subspace_mode": "walk",
-}
+#: the kernel backends: the shipped one and the drift-free oracle
+_BACKENDS = ("rank1", "chol")
+_SHIPPED = {"hot_style": "walk_select", "subspace_mode": "walk"}
 
 
 def _leaf_budget(params: SamplerParams, n: int) -> int:
@@ -120,6 +125,10 @@ def _resolve_styles(params: SamplerParams, n: int) -> SamplerParams:
     ``chol_impl``/``gram_dtype``/``scan_unroll`` choose among the
     reference's lowerings of the same arithmetic; the port has one lowering
     for each (kernels K1 and K2, a Python loop) and does not read them.
+
+    ``kernel_backend="chol"`` returns the params unchanged: the scan and
+    refresh styles do not apply to it (as in the reference). The
+    ``woodbury`` backend raises.
     """
     for name, value in _SHIPPED.items():
         if getattr(params, name) != value:
@@ -127,6 +136,13 @@ def _resolve_styles(params: SamplerParams, n: int) -> SamplerParams:
                 f"SamplerParams.{name}={getattr(params, name)!r}: the port "
                 f"runs only {value!r} (the shipped default)"
             )
+    if params.kernel_backend not in _BACKENDS:
+        raise NotImplementedError(
+            f"SamplerParams.kernel_backend={params.kernel_backend!r}: the port "
+            f"runs only {_BACKENDS}"
+        )
+    if params.kernel_backend == "chol":
+        return params
     scan, refresh = params.scan_style, params.refresh_style
     if refresh == "auto":
         refresh = "leaf" if n >= 256 and scan in ("auto", "coeff") else "onesolve"
@@ -200,12 +216,16 @@ class KernState(NamedTuple):
     """Kernel carry: logdet K (C,) and the tier's factor of K.
 
     Dense tier: ``K_inv`` (C, N, N), ``L`` None. Leaf tier: ``L`` (C, R, R),
-    the Cholesky factor of A = (nu/gamma) I + Z^T Z, ``K_inv`` None.
+    the Cholesky factor of A = (nu/gamma) I + Z^T Z, ``K_inv`` None. The
+    chol backend carries the kernel matrix itself, ``K`` (C, N, N), and
+    nothing else (``K_inv``, ``K_logdet`` and ``L`` None): every move
+    factors it afresh.
     """
 
     K_inv: torch.Tensor | None
-    K_logdet: torch.Tensor
+    K_logdet: torch.Tensor | None
     L: torch.Tensor | None = None
+    K: torch.Tensor | None = None
 
     def to(self, device) -> "KernState":
         return KernState(*(None if t is None else t.to(device) for t in self))
@@ -341,6 +361,13 @@ def _chol_mll(
     return 0.5 * (-(z * z).sum(-1) - logdet + correction), logdet
 
 
+def _leaf_agreement(leaves_j: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(C, N, N) 0/1 matrix of the rows sharing a leaf of one tree, from its
+    leaves (C, N); padded rows and columns masked out."""
+    eq = (leaves_j[:, :, None] == leaves_j[:, None, :]).to(torch.float32)
+    return eq * (mask[:, None] * mask[None, :])
+
+
 def _default_mask(X: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     if mask is None:
         return torch.ones(X.shape[0], dtype=torch.float32, device=X.device)
@@ -369,6 +396,8 @@ def init_chain_state(
     as in the reference, so its noise moves reject and the fault shows in
     the outputs (the move scan's capacity guard lets only moves that do not
     raise the total through, and the MLL stays NaN while it exceeds R).
+    The chol backend builds K from the Gram (K1) and takes the MLL from its
+    factor (K2).
     """
     if bounds is None:
         raise ValueError("init_chain_state requires the domain bounds array")
@@ -386,7 +415,12 @@ def init_chain_state(
     noise = torch.as_tensor(noise, dtype=torch.float32, device=X.device).expand(c).clone()
     scale = torch.as_tensor(scale, dtype=torch.float32, device=X.device).expand(c).clone()
     leaves = route_forest(forest, X, feat_types, params.max_depth)
-    if params.refresh_style == "leaf":
+    if params.kernel_backend == "chol":
+        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
+        K = kernel_matrix(gram, noise, scale)
+        mll, _ = _chol_mll(blocked_cholesky(K)[0], y.reshape(-1), noise, pad_count)
+        kern = KernState(K_inv=None, K_logdet=None, K=K)
+    elif params.refresh_style == "leaf":
         budget = _leaf_budget(params, X.shape[0])
         Z, total = _leaf_Z(forest, leaves, budget, mask)
         L, K_logdet, mll = _leaf_factor_mll(
@@ -577,6 +611,49 @@ def _tree_moves_rank1(
     return forest, leaves, accepts, torch.stack(log_alphas, 1)
 
 
+def _tree_moves_chol(
+    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
+):
+    """m tree moves on the exact kernel matrix, one factorization a move.
+
+    Move j adds its exact delta ``(scale/m) (A_new - A_cur)``, the
+    difference of tree j's masked 0/1 agreement under the proposed and the
+    current leaves, to the carried K and factors ``K + delta`` for all
+    chains at once through K2 (``blocked_cholesky``: one launch at N <= 256,
+    host-blocked above); the MLL comes from the factor (:func:`_chol_mll`,
+    with the padding correction). A failed factorization gives a NaN MLL,
+    and the move rejects. Nothing drifts: no inverse is carried, so the
+    scan's seed is the state's own MLL, as in the reference.
+
+    Returns (forest, leaves, accepts (C, m), log_alpha (C, m), K, mll).
+    """
+    s_over_m = (state.scale / params.num_trees)[:, None, None]
+    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
+    y_flat = y.reshape(-1)
+    K, cur_mll = state.kern.K, state.mll
+    log_u = torch.log(batch.u_accept)
+    zero = torch.zeros_like(cur_mll)
+
+    accepts, log_alphas = [], []
+    for j in range(params.num_trees):
+        delta = s_over_m * (
+            _leaf_agreement(batch.new_leavesT[:, j], mask)
+            - _leaf_agreement(batch.cur_leavesT[:, j], mask)
+        )
+        K_new = K + delta
+        new_mll, _ = _chol_mll(blocked_cholesky(K_new)[0], y_flat, state.noise, pad_count)
+        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
+        acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
+        K = torch.where(acc[:, None, None], K_new, K)
+        cur_mll = torch.where(acc, new_mll, cur_mll)
+        accepts.append(acc)
+        log_alphas.append(log_alpha)
+
+    accepts = torch.stack(accepts, 1)
+    forest, leaves = _merge_accepted(packed0, batch, accepts)
+    return forest, leaves, accepts, torch.stack(log_alphas, 1), K, cur_mll
+
+
 def _tree_moves_coeff(
     state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
 ):
@@ -671,46 +748,16 @@ def _tree_moves_coeff(
     return forest, leaves, accepts, torch.stack(log_alphas, 1)
 
 
-def step_with_info(
-    state: ChainState,
-    X: torch.Tensor,
-    y: torch.Tensor,
-    bounds: torch.Tensor,
-    feat_types: torch.Tensor,
-    params: SamplerParams,
-    draws: StepDraws,
-    mask: torch.Tensor | None = None,
-    beta: float | torch.Tensor = 1.0,
-) -> tuple[ChainState, StepInfo]:
-    """One full MCMC step for C chains: m tree moves + one noise/scale move.
-
-    ``beta`` is the inverse temperature of likelihood tempering (parallel
-    tempering, SMC): a float, or a (C,) float32 tensor with one per chain
-    row. It multiplies the MLL difference of every MH ratio, the tree moves'
-    and the noise move's; the proposal ratios stay untempered, and beta = 1
-    is the plain step. (It is not ``params.beta``, the tree prior's depth
-    exponent.)
-
-    Returns the new state and the step's accept decisions; the log ratios in
-    :class:`StepInfo` are the tempered ones.
-    """
-    params = _resolve_styles(params, X.shape[0])
-    check_matmul_precision()
-    mask = _default_mask(X, mask)
-    pad_count = X.shape[0] - mask.sum()
-    y_flat = y.reshape(-1)
-
-    (new_noise, new_scale), log_q_hyper = get_noise_scale_proposal(
-        draws.z_noise, draws.z_scale, state.noise, state.scale, params
-    )
-    leaf_tier = params.refresh_style == "leaf"
-    tree_moves = _tree_moves_coeff if leaf_tier else _tree_moves_rank1
-    forest, leaves, accepts, tree_log_alpha = tree_moves(
-        state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
-    )
+def _refresh(forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count,
+             params, leaf_tier):
+    """The exact refresh of the shipped tiers: both MH branches of the noise
+    move (current and proposed noise/scale) factored at once from the
+    post-scan leaves. Returns (cur_mll, new_mll, L2, E2, logdet2), the
+    factors and logdets (C, 2, ...) of both branches (E2 None in the leaf
+    tier)."""
     noise2 = torch.stack([state.noise, new_noise], 1)  # (C, 2)
     scale2 = torch.stack([state.scale, new_scale], 1)
-
+    E2 = None
     if leaf_tier:
         # exact refresh in leaf space: Z of the new leaves, G = Z^T Z shared
         # by both MH branches, both A_b factored in one K2 call; no (N, N)
@@ -732,19 +779,85 @@ def step_with_info(
         K2 = kernel_matrix(gram[:, None], noise2, scale2)  # (C, 2, N, N)
         L2, E2 = blocked_cholesky(K2)
         mll2, logdet2 = _chol_mll(L2, y_flat, noise2, pad_count)
-    cur_mll, new_mll = mll2[:, 0], mll2[:, 1]
+    return mll2[:, 0], mll2[:, 1], L2, E2, logdet2
+
+
+def step_with_info(
+    state: ChainState,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    params: SamplerParams,
+    draws: StepDraws,
+    mask: torch.Tensor | None = None,
+    beta: float | torch.Tensor = 1.0,
+) -> tuple[ChainState, StepInfo]:
+    """One full MCMC step for C chains: m tree moves + one noise/scale move.
+
+    ``beta`` is the inverse temperature of likelihood tempering (parallel
+    tempering, SMC): a float, or a (C,) float32 tensor with one per chain
+    row. It multiplies the MLL difference of every MH ratio, the tree moves'
+    and the noise move's; the proposal ratios stay untempered, and beta = 1
+    is the plain step. (It is not ``params.beta``, the tree prior's depth
+    exponent.)
+
+    With ``kernel_backend="chol"`` the tree moves are
+    :func:`_tree_moves_chol`, and the noise move rescales the carried K
+    exactly, ``(new_scale/scale) (K - (jitter + noise) I) + (jitter +
+    new_noise) I``, with one more factorization and no refresh.
+
+    Returns the new state and the step's accept decisions; the log ratios in
+    :class:`StepInfo` are the tempered ones.
+    """
+    params = _resolve_styles(params, X.shape[0])
+    check_matmul_precision()
+    mask = _default_mask(X, mask)
+    pad_count = X.shape[0] - mask.sum()
+    y_flat = y.reshape(-1)
+
+    (new_noise, new_scale), log_q_hyper = get_noise_scale_proposal(
+        draws.z_noise, draws.z_scale, state.noise, state.scale, params
+    )
+    chol = params.kernel_backend == "chol"
+    leaf_tier = not chol and params.refresh_style == "leaf"
+    if chol:
+        forest, leaves, accepts, tree_log_alpha, K, cur_mll = _tree_moves_chol(
+            state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
+        )
+        # the noise move rescales the exact K elementwise: no Gram rebuild,
+        # one more factorization
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        gram_part = K - (JITTER + state.noise)[:, None, None] * eye
+        K_hyp = (new_scale / state.scale)[:, None, None] * gram_part + (
+            JITTER + new_noise
+        )[:, None, None] * eye
+        new_mll, _ = _chol_mll(blocked_cholesky(K_hyp)[0], y_flat, new_noise, pad_count)
+    else:
+        tree_moves = _tree_moves_coeff if leaf_tier else _tree_moves_rank1
+        forest, leaves, accepts, tree_log_alpha = tree_moves(
+            state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
+        )
+        cur_mll, new_mll, L2, E2, logdet2 = _refresh(
+            forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count,
+            params, leaf_tier,
+        )
 
     log_alpha = log_q_hyper + _tempered(beta, new_mll - cur_mll)
     accept = torch.log(draws.u_hyper) <= torch.minimum(
         log_alpha, torch.zeros_like(log_alpha)
     )
-    K_logdet = torch.where(accept, logdet2[:, 1], logdet2[:, 0])
-    if leaf_tier:
-        L_sel = torch.where(accept[:, None, None], L2[:, 1], L2[:, 0])
-        kern = KernState(K_inv=None, K_logdet=K_logdet, L=L_sel)
+    if chol:
+        K_sel = torch.where(accept[:, None, None], K_hyp, K)
+        kern = KernState(K_inv=None, K_logdet=None, K=K_sel)
     else:
-        E_sel = torch.where(accept[:, None, None], E2[:, 1], E2[:, 0])
-        kern = KernState(K_inv=E_sel.transpose(-1, -2) @ E_sel, K_logdet=K_logdet)
+        K_logdet = torch.where(accept, logdet2[:, 1], logdet2[:, 0])
+        if leaf_tier:
+            L_sel = torch.where(accept[:, None, None], L2[:, 1], L2[:, 0])
+            kern = KernState(K_inv=None, K_logdet=K_logdet, L=L_sel)
+        else:
+            E_sel = torch.where(accept[:, None, None], E2[:, 1], E2[:, 0])
+            kern = KernState(K_inv=E_sel.transpose(-1, -2) @ E_sel, K_logdet=K_logdet)
     new_state = ChainState(
         forest=forest,
         leaves=leaves,

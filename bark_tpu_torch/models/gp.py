@@ -1,7 +1,8 @@
 """Posterior GP prediction over batched forest samples.
 
 Counterpart of ``bark_tpu/models/gp.py`` (``forest_predict``,
-``forest_predict_leaf`` and ``mixture_of_gaussians_as_normal``). The
+``forest_predict_cg``, ``forest_predict_leaf`` and
+``mixture_of_gaussians_as_normal``). The
 reference ``vmap``-s one posterior sample over the batch; here every tensor
 carries the leading dimension S = chains x samples: the data is routed
 through all S forests at once, the S agreement Grams come from one launch
@@ -24,6 +25,7 @@ from bark_tpu_torch.forest import (
     gram_from_leaves,
     route_forest,
 )
+from bark_tpu_torch.ops.iterative import cg_posterior
 from bark_tpu_torch.ops.linalg import (
     JITTER,
     blocked_cholesky,
@@ -70,6 +72,37 @@ def forest_predict(
         cand_leaves, train_leaves, None, train_mask, node_limit
     )
     return gp_posterior(K_inv, K_xX, train_y.to(torch.float32), scale)
+
+
+def forest_predict_cg(
+    forest: Forest,
+    noise: torch.Tensor,
+    scale: torch.Tensor,
+    train_x: torch.Tensor,
+    train_y: torch.Tensor,
+    candidates: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = 16,
+    train_mask: torch.Tensor | None = None,
+    maxiter: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Matrix-free sibling of :func:`forest_predict`: the same (mu, var) per
+    posterior sample, every kernel product factored through the packed leaf
+    indicator and both solves by preconditioned CG over all S samples at
+    once (``ops.iterative.cg_posterior``); nothing N x N is built. No K1 or
+    K2 launch: the products are matmuls, as in the reference, where they
+    are not Pallas kernels either.
+    """
+    check_matmul_precision()
+    flat = flatten_batch(forest)
+    noise = noise.reshape(-1).to(torch.float32)
+    scale = scale.reshape(-1).to(torch.float32)
+    train_leaves = route_forest(flat, train_x, feat_types, max_depth)
+    cand_leaves = route_forest(flat, candidates, feat_types, max_depth)
+    return cg_posterior(
+        train_leaves, cand_leaves, train_y.to(torch.float32), noise, scale,
+        flat.node_limit, mask=train_mask, maxiter=maxiter,
+    )
 
 
 def forest_predict_leaf(

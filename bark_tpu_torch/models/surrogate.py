@@ -39,6 +39,7 @@ from bark_tpu_torch.ops.linalg import check_matmul_precision
 from bark_tpu_torch.parallel.tempering import run_parallel_tempering
 from bark_tpu_torch.models.gp import (
     forest_predict,
+    forest_predict_cg,
     forest_predict_leaf,
     mixture_of_gaussians_as_normal,
 )
@@ -74,11 +75,6 @@ class _BARKSurrogateBase:
                  predict_backend: str = "auto", device=None):
         if predict_backend not in ("auto", "dense", "cg", "leaf"):
             raise ValueError(f"unknown predict_backend: {predict_backend!r}")
-        if predict_backend == "cg":
-            raise NotImplementedError(
-                'predict_backend="cg": forest_predict_cg and ops/iterative.py '
-                "are not ported yet (ROADMAP.md queue 1 item 6)"
-            )
         self.device = resolve_device(device)
         self.domain = domain
         self.params = params
@@ -106,7 +102,9 @@ class _BARKSurrogateBase:
         backend = self.predict_backend
         if backend == "auto":
             backend = "leaf" if train_x.shape[0] > self.cg_threshold else "dense"
-        predict_fn = {"dense": forest_predict, "leaf": forest_predict_leaf}[backend]
+        predict_fn = {
+            "dense": forest_predict, "cg": forest_predict_cg, "leaf": forest_predict_leaf,
+        }[backend]
         mu, var = predict_fn(
             self.model.forest,
             self.model.noise,

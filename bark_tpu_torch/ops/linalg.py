@@ -55,6 +55,15 @@ def kernel_matrix(
     return scale[..., None, None] * gram + (JITTER + noise)[..., None, None] * eye
 
 
+def mll(K_inv: torch.Tensor, K_logdet: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Marginal log-likelihood up to the N/2 log(2 pi) constant, from K^-1
+    (..., N, N) and logdet K; ``y`` is (N,) or (N, 1). The quadratic runs
+    at full float32 (the reference's ``MM_PRECISION``)."""
+    y = y.reshape(-1)
+    quad = (K_inv @ y) @ y
+    return 0.5 * (-quad - K_logdet)
+
+
 def masked_mll(
     K_inv: torch.Tensor,
     K_logdet: torch.Tensor,
@@ -72,6 +81,47 @@ def masked_mll(
     quad = (K_inv @ y) @ y
     correction = pad_count * torch.log(JITTER + noise)
     return 0.5 * (-quad - K_logdet + correction)
+
+
+def low_rank_inv_update(
+    K_inv: torch.Tensor, U: torch.Tensor, subtract: bool = False
+) -> torch.Tensor:
+    """Woodbury: ``(K +- U U^T)^-1`` from K^-1 (..., N, N); U (..., N, L) may
+    hold all-zero columns (padded leaf indicators), which add nothing."""
+    sign = -1.0 if subtract else 1.0
+    KU = K_inv @ U
+    eye = torch.eye(U.shape[-1], dtype=K_inv.dtype, device=K_inv.device)
+    den = sign * eye + U.transpose(-1, -2) @ KU
+    return K_inv - KU @ torch.linalg.solve(den, KU.transpose(-1, -2))
+
+
+def low_rank_det_update(
+    K_inv: torch.Tensor, U: torch.Tensor, K_logdet: torch.Tensor, subtract: bool = False
+) -> torch.Tensor:
+    """Matrix determinant lemma: ``logdet(K +- U U^T)`` from logdet K. As the
+    reference, the log of |det| of the (L, L) capacitance is added."""
+    sign = -1.0 if subtract else 1.0
+    eye = torch.eye(U.shape[-1], dtype=K_inv.dtype, device=K_inv.device)
+    small = eye + sign * (U.transpose(-1, -2) @ (K_inv @ U))
+    return K_logdet + torch.linalg.slogdet(small).logabsdet
+
+
+def rank1_inv_logdet_update(
+    K_inv: torch.Tensor, K_logdet: torch.Tensor, w: torch.Tensor, subtract: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sherman-Morrison and the determinant lemma for ``K +- w w^T``.
+
+    ``K_inv`` (..., N, N), ``w`` (..., N). Returns ``(K_inv', K_logdet',
+    denom)`` with ``denom = 1 +- w^T K^-1 w``: a caller must treat
+    ``denom <= 0`` (float32 round-off on the subtract side) as a failed
+    update and reject the move.
+    """
+    Kw = (K_inv @ w[..., None])[..., 0]
+    quad = (w * Kw).sum(-1)
+    denom = 1.0 - quad if subtract else 1.0 + quad
+    sign = 1.0 if subtract else -1.0
+    K_inv_new = K_inv + sign * (Kw[..., :, None] * Kw[..., None, :]) / denom[..., None, None]
+    return K_inv_new, K_logdet + torch.log(denom), denom
 
 
 def blocked_cholesky(

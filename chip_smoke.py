@@ -18,8 +18,9 @@ in both of its tiers, in phases:
      tree-major view; (3, 77, 130) masked and unmasked; the predict-shaped
      (64, 1024, 200); m = 37 (a partial 32-tree word); node_limit = 300 (16 planes,
      ids up to 299). Then at (64, 50, 50) and (64, 200, 200) as the
-     sampler calls it and at (64, 1024, 200): device time (torch.profiler),
-     call time, the plain version's,
+     sampler calls it and at (64, 1024, 200): device time (torch.profiler,
+     or CUDA events where its captures miss the kernels), call time, the
+     plain version's,
      the bf16 one-hot ``torch.bmm`` (counts checked), the bound and the
      share of it (``bark_tpu_torch/benchmarks/kernel_timing.py``);
   4. K2 (batched Cholesky with inverse, one launch for any BK <= 256)
@@ -124,16 +125,41 @@ in both of its tiers, in phases:
      full-width BO iterations (the configuration of 8 b) on
      ``BARKSurrogate(fit_style="tempered", num_replicas=8)``: no fallback,
      every ask in the domain, the launches the code predicts, a swap rate in
-     [0, 1]; seconds per iteration split as in 8 b.
+     [0, 1]; seconds per iteration split as in 8 b;
+ 10. the drift-free oracle, posterior sampling and the CG predict: (a)
+     ``kernel_backend="chol"`` at N=50, 200 and 512, 16 chains, 5 steps from
+     empty forests: K1 once (init) and K2 once per factorization and
+     256-block, (1 + 5 (m + 1)) x blocks; finite MLL, a tree accept rate in
+     (0, 1), leaves equal to a fresh routing, the carried K equal to a
+     rebuild from the plain Gram (1e-5 + 1e-5 |value|), one step replayed on
+     the CPU deciding alike up to near-ties, and K2 (the blocked path at
+     512) at the move shape against its plain version, timed; ms a step. (b)
+     chol against rank1 at N=50, 64 chains warmed 10 steps: one step from one
+     state with the same draws; at least 95% of the chains decide every move
+     alike. (c) ``models/sampling.py`` at the width of a BO fit: S=32
+     (4 chains x 8 samples), N=224, 1024 points, 256 draws:
+     ``leaf_function_samples`` (K2 seven times, r=1600) with the empirical
+     mean and variance of every point within 5 standard errors of
+     ``forest_predict_leaf`` (the variance on the Wilson-Hilferty cube-root
+     scale), the dense and leaf f* samplers agreeing as the reference's test
+     asks (means and standard deviations within 0.2), Nystrom with the
+     inducing set = the training set reproducing K_XX to 1e-3; K1 and K2 at
+     these shapes against their plain versions, timed; ms per call. (d)
+     ``forest_predict_cg`` at N=4096, S=32, 256 candidates: no kernel launch,
+     mu and var against ``forest_predict_leaf`` and, on 4 samples, the
+     float64 dense oracle (1e-3 + 1e-3 |value|), and
+     ``BARKSurrogate(predict_backend="cg").predict`` against the leaf
+     backend; CG trips and ms.
 
-The whole run takes about seven minutes of command time on an H100 (the sampler's
+The whole run takes eight to ten minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
 Prints what each phase found, then one JSON line with each kernel's launch
 count on the N=50 run and on each path ("launches_by_path": the sampler's
 four sizes, "predict", "acquisition", "bo_iteration", "tempered N=512", "smc
-N=200" and "tempered_bo"), error, times
+N=200", "tempered_bo", "chol N=50/200/512", "leaf_function_samples",
+"generate_fstar_samples", "nystrom" and "predict cg N=4096"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -173,6 +199,10 @@ ORACLE_ATOL = ORACLE_RTOL = 1e-3  # float32 posterior against the float64 oracle
 PT_N, PT_LADDERS, PT_REPLICAS, PT_ROUNDS, BETA_MIN = 512, 4, 8, 300, 0.05
 SMC_N, SMC_PARTICLES, SMC_ROUNDS, SMC_MUTATIONS = 200, 64, 16, 2
 TEMPERED_BO_ITERATIONS = 3
+CHOL_NS, CHOL_CHAINS, CHOL_STEPS = (50, 200, 512), 16, 5
+AGREE_N, AGREE_CHAINS = 50, 64
+SAMPLING_N, SAMPLING_POINTS, SAMPLING_DRAWS = 224, 1024, 256  # S = 4 chains x 8 samples
+CG_N, CG_CANDIDATES, CG_ORACLE_SAMPLES = 4096, 256, 4
 
 
 def log(msg: str) -> None:
@@ -443,7 +473,7 @@ def phase_predict_acquisition(torch, dev, smi, tf):
         (f"({samples},{ACQ_BATCH},{n_pad})", (cb, acq.train_leaves, None, mask), (5, 2)),
     ):
         t = time_k1(torch, gram_module, *args, node_limit, *reps)
-        require(t["device_ms"] is not None, f"K1 {name}: the profiler saw the kernel")
+        require(t["device_ms"] > 0, f"K1 {name}: a device time")
         times[("gram", name)] = t
         log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: device {t['device_ms']} ms "
             f"({t['kernels_per_call']} kernels a call: {t['kernel_ms']}), call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 "
@@ -451,7 +481,7 @@ def phase_predict_acquisition(torch, dev, smi, tf):
             f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
     t = time_k2(torch, lambda: chol_inv_cuda(K), lambda: chol_inv_plain(K), samples, n_pad,
                 "chol_inv_kernel")
-    require(t["device_ms"] is not None, "K2 at the predict shape: the profiler saw the kernel")
+    require(t["device_ms"] > 0, "K2 at the predict shape: a device time")
     times[("chol_inv", f"({samples},{n_pad},{n_pad})")] = t
     log(f"[K2] ({samples},{n_pad},{n_pad}): device {t['device_ms']:.5f} ms, call "
         f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / {t['library_ms']} device "
@@ -585,11 +615,12 @@ def phase_predict_acquisition(torch, dev, smi, tf):
     del Lb, Eb, Lp
     t = time_k2(torch, lambda: blocked_cholesky(A32), lambda: chol_inv_plain(A32), s4, r,
                 None, reps=5, inner=2)
-    require(t["device_ms"] is not None, "blocked_cholesky: the profiler saw its kernels")
+    require(t["device_ms"] > 0, "blocked_cholesky: a device time")
     times[("chol_inv", f"({s4},{r},{r}) blocked")] = t
     log(f"[K2] ({s4},{r},{r}) leaf-space factor through blocked_cholesky ({blocks} launches): "
         f"|L-L_plain|/max|L| {err_l:.3e}, |EL-I| {resid:.3e}; device {t['device_ms']:.3f} ms "
-        f"({t['kernels_per_call']:.0f} kernels a call), call {t['call_ms']:.3f}, cuSOLVER "
+        f"({t['kernels_per_call']} kernels a call, {t['device_source']}), call {t['call_ms']:.3f}, "
+        f"cuSOLVER "
         f"{t['plain_ms']:.3f} call / {t['library_ms']} device; bound {t['bound_ms']:.3f} ms "
         f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
     log(f"[predict N=4096] peak device memory of each call at S={s4}, MiB: {peaks}")
@@ -995,6 +1026,285 @@ def phase_tempered(torch, dev, smi):
     return launches, times
 
 
+def phase_oracle_sampling_cg(torch, dev, smi, tf):
+    """Phase 10 (see the module docstring). Returns the launches by path and
+    the kernel times at the new shapes."""
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.fitting.sampler import (
+        BARKModel, draw_step, init_chain_state, run_bark_sampler, run_chain, step_with_info,
+    )
+    from bark_tpu_torch.forest import (
+        Forest, compact_leaf_indicator, create_empty_forest, flatten_batch, route_forest,
+    )
+    from bark_tpu_torch.models.gp import forest_predict_cg, forest_predict_leaf
+    from bark_tpu_torch.models.sampling import (
+        construct_nystrom_features, generate_fstar_samples, generate_fstar_samples_leaf,
+        leaf_function_samples, nystrom_samples,
+    )
+    from bark_tpu_torch.models.surrogate import BARKSurrogate
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
+    from bark_tpu_torch.ops.iterative import cg_solve
+    from bark_tpu_torch.ops.linalg import blocked_cholesky, kernel_matrix
+
+    def zero():
+        gram_cuda.launches = chol_inv_cuda.launches = 0
+
+    def counts():
+        return {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+
+    def timed(fn):
+        """(result, seconds, launches) of one call."""
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    def log_k1(name, t):
+        log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: exact; device "
+            f"{t['device_ms']} ms ({t['kernels_per_call']} kernels a call), call "
+            f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm {t['library_ms']} "
+            f"ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+
+    def log_k2(name, t, err, resid):
+        log(f"[K2] {name}: |L-L_plain| {err:.3e}, |EL-I| {resid:.3e}; device "
+            f"{t['device_ms']:.5f} ms ({t['kernels_per_call']} kernels a call, "
+            f"{t['device_source']}), call "
+            f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / {t['library_ms']} device "
+            f"(cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+
+    def check_k2(name, K, bound_abs):
+        """K2 (or blocked_cholesky above 256) against its plain version on
+        the batch K, then timed; ``bound_abs`` None takes the relative bound."""
+        n = K.shape[-1]
+        factor = (lambda: chol_inv_cuda(K)) if n <= MAX_BLOCK else (lambda: blocked_cholesky(K))
+        L, E = factor()
+        Lp, _ = chol_inv_plain(K)
+        err = (rel_err(torch, L, Lp) if bound_abs is None
+               else (L - Lp).abs().max().item())
+        resid = (E @ L - torch.eye(n, device=dev)).abs().max().item()
+        bound = REL_BOUND if bound_abs is None else bound_abs
+        require(err <= bound and resid <= 5e-3,
+                f"K2 {name}: |L - L_plain| {err} <= {bound}, |E L - I| {resid} <= 5e-3")
+        small = n <= MAX_BLOCK and K.shape[0] * n * n < 2**24
+        t = time_k2(torch, factor, lambda: chol_inv_plain(K), K.shape[0], n,
+                    "chol_inv_kernel" if n <= MAX_BLOCK else None,
+                    *((25, 10) if small else (5, 2)))
+        require(t["device_ms"] > 0, f"K2 {name}: a device time")
+        times[("chol_inv", name)] = t
+        log_k2(name, t, err, resid)
+
+    launches, times = {}, {}
+    dom = tf.domain
+    ft = torch.as_tensor(dom.feature_types(), device=dev)
+    bounds = torch.as_tensor(dom.bounds("bitmask"), device=dev)
+
+    def data(n, seed=0):
+        X_np = dom.sample(n, np.random.default_rng(seed))
+        y_np = tf.f(X_np)
+        return (torch.as_tensor(X_np, device=dev),
+                torch.as_tensor((y_np - y_np.mean()) / y_np.std(), dtype=torch.float32,
+                                device=dev))
+
+    # ---- (a) the chol backend, the drift-free oracle
+    for n in CHOL_NS:
+        X, y = data(n)
+        params = SamplerParams(warmup_steps=0, num_samples=CHOL_STEPS, steps_per_sample=1,
+                               num_chains=CHOL_CHAINS, num_trees=SLICE_TREES,
+                               kernel_backend="chol")
+        model = BARKModel(
+            create_empty_forest(SLICE_TREES, params.node_limit, (CHOL_CHAINS,), dev),
+            torch.full((CHOL_CHAINS,), 0.1, device=dev), torch.ones(CHOL_CHAINS, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(n)
+        run, dt, c = timed(lambda: run_chain(gen, model, X, y, bounds, ft, params))
+        launches[f"chol N={n}"] = c
+        blocks = -(-n // MAX_BLOCK)
+        want = {"gram": 1, "chol_inv": blocks * (1 + CHOL_STEPS * (SLICE_TREES + 1))}
+        require(c == want, f"chol N={n}: K1 once (init) and K2 {blocks} time(s) per "
+                           f"factorization, init + {CHOL_STEPS} x (m + 1): {want}, got {c}")
+        state = run.state
+        acc = run.tree_accept_rate.mean().item()
+        require(bool(torch.isfinite(run.mll).all()), f"chol N={n}: finite MLL")
+        require(0.0 < acc < 1.0, f"chol N={n}: tree accept rate {acc} in (0, 1)")
+        fresh = route_forest(state.forest, X, ft)
+        require(torch.equal(fresh, state.leaves), f"chol N={n}: leaves equal a fresh routing")
+        K_r = kernel_matrix(gram_plain(fresh, fresh), state.noise, state.scale)
+        ok, err_k = within(torch, state.kern.K, K_r, 1e-5, 1e-5)
+        require(ok, f"chol N={n}: carried K equals a fresh rebuild (max |diff| {err_k})")
+        log(f"[chol N={n}] {CHOL_CHAINS} chains, {CHOL_STEPS} steps from empty forests in "
+            f"{dt:.3f} s = {dt / CHOL_STEPS * 1e3:.1f} ms a step (init included) on {smi}; "
+            f"launches {c}; tree accept {acc:.4f}; leaves == fresh routing; "
+            f"|K - rebuild| {err_k:.3e}")
+        replay_on_cpu(torch, f"chol N={n}", state, X, y, bounds, ft, params, SLICE_TREES)
+        check_k2(f"({CHOL_CHAINS},{n},{n}) chol move", state.kern.K.contiguous(),
+                 None if n > MAX_BLOCK else (2e-4 if n > 200 else 1e-4))
+        del run, state, K_r
+
+    # ---- (b) chol against rank1: one step from one state with the same draws
+    X, y = data(AGREE_N)
+    rank1 = SamplerParams(num_trees=SLICE_TREES, num_chains=AGREE_CHAINS, warmup_steps=10,
+                          num_samples=1, steps_per_sample=1)
+    chol = rank1.with_(kernel_backend="chol")
+    empty = BARKModel(
+        create_empty_forest(SLICE_TREES, rank1.node_limit, (AGREE_CHAINS,), dev),
+        torch.full((AGREE_CHAINS,), 0.1, device=dev), torch.ones(AGREE_CHAINS, device=dev))
+    warm = run_bark_sampler(torch.Generator(device=dev).manual_seed(16), empty, X, y, bounds,
+                            ft, rank1)
+    forest = Forest(*(f[:, -1] for f in warm.forest))
+    draws = draw_step(torch.Generator(device=dev).manual_seed(17), AGREE_CHAINS, rank1, dev)
+    infos = [
+        step_with_info(init_chain_state(forest, warm.noise[:, -1], warm.scale[:, -1], X, y, ft,
+                                        p, bounds=bounds), X, y, bounds, ft, p, draws)[1]
+        for p in (rank1, chol)
+    ]
+    same_tree = infos[0].tree_accepts == infos[1].tree_accepts
+    alike = same_tree.all(1) & (infos[0].hyper_accept == infos[1].hyper_accept)
+    share_chains = alike.float().mean().item()
+    share_moves = same_tree.float().mean().item()
+    require(share_chains >= 0.95, f"chol vs rank1 at N={AGREE_N}: {share_chains:.4f} of "
+                                  f"{AGREE_CHAINS} chains alike in every move (>= 0.95)")
+    log(f"[chol vs rank1 N={AGREE_N}] one step from one state, same draws, {AGREE_CHAINS} "
+        f"chains: {share_moves:.4f} of tree moves decided alike, {share_chains:.4f} of chains "
+        f"alike in every move")
+
+    # ---- (c) posterior function sampling at the width of a BO fit
+    rng = np.random.default_rng(21)
+    Xs = dom.sample(SAMPLING_N, rng)
+    params = SamplerParams(num_chains=4, num_samples=8, steps_per_sample=5, warmup_steps=50)
+    sur = BARKSurrogate(dom, params, seed=2).fit(Xs, tf.f(Xs))
+    train_x, train_y = sur.train_data
+    require(train_x.shape[0] == SAMPLING_N, f"sampling: N={SAMPLING_N} needs no padding")
+    model, depth = sur.model, params.max_depth
+    s_count = params.num_chains * params.num_samples
+    r = SLICE_TREES * ((params.node_limit + 1) // 2)
+    blocks = -(-r // MAX_BLOCK)
+    Xe = torch.as_tensor(dom.sample(SAMPLING_POINTS, rng), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    D = SAMPLING_DRAWS
+    eps = torch.randn(s_count, r, D, generator=gen, device=dev)
+    draws_, leaf_s, c = timed(lambda: leaf_function_samples(model, train_x, train_y, Xe, ft, eps,
+                                                           depth))
+    launches["leaf_function_samples"] = c
+    require(c == {"gram": 0, "chol_inv": blocks},
+            f"leaf_function_samples: no K1 call and {blocks} K2 launches (r={r}), got {c}")
+    mu, var = forest_predict_leaf(model.forest, model.noise, model.scale, train_x, train_y, Xe,
+                                  ft, depth)
+    z_mu = ((draws_.mean(1) - mu) / torch.sqrt(var / D)).abs().max().item()
+    # the sample variance on the Wilson-Hilferty cube-root scale, where it is
+    # normal: (s^2/var)^(1/3) ~ N(1 - 2/(9k), 2/(9k)) with k = D - 1 degrees
+    k = D - 1
+    wh = ((draws_.var(1) / var) ** (1 / 3) - (1 - 2 / (9 * k))) / (2 / (9 * k)) ** 0.5
+    z_var = wh.abs().max().item()
+    require(z_mu <= 5.0 and z_var <= 5.0,
+            f"leaf_function_samples: empirical mean and variance of {D} draws within 5 se of "
+            f"forest_predict_leaf at {s_count} x {SAMPLING_POINTS} points (max |z| {z_mu:.2f}, "
+            f"{z_var:.2f})")
+    z = torch.randn(s_count, SAMPLING_N, D, generator=gen, device=dev)
+    fs_dense, dense_s, c_dense = timed(lambda: generate_fstar_samples(model, train_x, train_y,
+                                                                      ft, z, depth))
+    require(c_dense == {"gram": 1, "chol_inv": 1},
+            f"generate_fstar_samples: one K1 and one K2 call, got {c_dense}")
+    launches["generate_fstar_samples"] = c_dense
+    eps_f = torch.randn(s_count, r, D, generator=gen, device=dev)
+    fs_leaf, fleaf_s, c = timed(lambda: generate_fstar_samples_leaf(model, train_x, train_y, ft,
+                                                                    eps_f, depth))
+    require(c == {"gram": 0, "chol_inv": blocks},
+            f"generate_fstar_samples_leaf: {blocks} K2 launches, got {c}")
+    d_mean = abs(fs_leaf.mean().item() - fs_dense.mean().item())
+    d_std = abs(fs_leaf.std().item() - fs_dense.std().item())
+    require(bool(torch.isfinite(fs_dense).all() and torch.isfinite(fs_leaf).all())
+            and d_mean < 0.2 and d_std < 0.2,
+            f"f* samplers: leaf and dense agree (|mean diff| {d_mean}, |std diff| {d_std} < 0.2)")
+    feats, nys_s, c = timed(lambda: construct_nystrom_features(model, train_x, train_x, ft,
+                                                               depth))
+    require(c == {"gram": 2, "chol_inv": 0}, f"Nystrom features: two K1 calls, got {c}")
+    launches["nystrom"] = c
+    flat = flatten_batch(model.forest)
+    tl = route_forest(flat, train_x, ft, depth).contiguous()
+    K_XX = model.scale.reshape(-1)[:, None, None] * gram_plain(tl, tl)
+    err_n = (feats @ feats.transpose(1, 2) - K_XX).abs().max().item()
+    require(err_n <= 1e-3, f"Nystrom with inducing = train reproduces K_XX: {err_n} <= 1e-3")
+    feats_e, nys_e_s, _ = timed(lambda: construct_nystrom_features(model, train_x, Xe, ft,
+                                                                   depth))
+    w = torch.randn(s_count, feats_e.shape[-1], D, generator=gen, device=dev)
+    nd, nd_s, _ = timed(lambda: nystrom_samples(feats_e, w))
+    require(nd.shape == (s_count, D, SAMPLING_POINTS) and bool(torch.isfinite(nd).all()),
+            "nystrom_samples: finite (S, draws, points)")
+    log(f"[sampling] S={s_count}, N={SAMPLING_N}, {SAMPLING_POINTS} points, {D} draws on {smi}: "
+        f"leaf_function_samples {leaf_s * 1e3:.2f} ms (max |z| mean {z_mu:.2f}, variance "
+        f"{z_var:.2f}); generate_fstar_samples {dense_s * 1e3:.2f} ms, _leaf "
+        f"{fleaf_s * 1e3:.2f} ms (mean {fs_dense.mean().item():.4f} / "
+        f"{fs_leaf.mean().item():.4f}, std {fs_dense.std().item():.4f} / "
+        f"{fs_leaf.std().item():.4f}); Nystrom on the train set {nys_s * 1e3:.2f} ms "
+        f"(|phi phi^T - K_XX| {err_n:.3e}), at {SAMPLING_POINTS} points {nys_e_s * 1e3:.2f} ms, "
+        f"nystrom_samples {nd_s * 1e3:.2f} ms")
+    # the kernels at these shapes
+    for name, args in ((f"({s_count},{SAMPLING_N},{SAMPLING_N}) f*", (tl, tl, None, None)),
+                       (f"({s_count},{SAMPLING_POINTS},{SAMPLING_N}) Nystrom K_xZ",
+                        (route_forest(flat, Xe, ft, depth).contiguous(), tl, None, None))):
+        got = gram_cuda(*args, params.node_limit)
+        require(torch.equal(got, gram_plain(*args)), f"K1 {name} equals its plain version")
+        t = time_k1(torch, gram_module, *args, params.node_limit, 10, 3)
+        require(t["device_ms"] > 0, f"K1 {name}: a device time")
+        times[("gram", name)] = t
+        log_k1(name, t)
+    nu = 1e-6 + model.noise.reshape(-1)
+    K_s = (K_XX + nu[:, None, None] * torch.eye(SAMPLING_N, device=dev)).contiguous()
+    check_k2(f"({s_count},{SAMPLING_N},{SAMPLING_N}) f*", K_s, 2e-4)
+    Zs = compact_leaf_indicator(flat, tl, (params.node_limit + 1) // 2)
+    gamma = model.scale.reshape(-1) / SLICE_TREES
+    A = (Zs.transpose(1, 2) @ Zs + (nu / gamma)[:, None, None] * torch.eye(r, device=dev))
+    check_k2(f"({s_count},{r},{r}) leaf_function_samples", A.contiguous(), None)
+    del draws_, feats, feats_e, nd, w, eps, eps_f, z, A, Zs, K_s
+
+    # ---- (d) predict_backend="cg" against "leaf"
+    X4 = dom.sample(CG_N, rng)
+    params4 = SamplerParams(num_chains=4, num_samples=8, steps_per_sample=2, warmup_steps=20)
+    sur4 = BARKSurrogate(dom, params4, seed=3, predict_backend="cg").fit(X4, tf.f(X4))
+    train_x, train_y = sur4.train_data
+    mask, model = sur4.train_mask, sur4.model
+    C_np = dom.sample(CG_CANDIDATES, rng)
+    C = torch.as_tensor(C_np, device=dev)
+    args = (model.forest, model.noise, model.scale, train_x, train_y, C, ft, depth)
+    (mu_c, var_c), cg_s, c = timed(lambda: forest_predict_cg(*args, train_mask=mask))
+    trips = cg_solve.trips
+    launches[f"predict cg N={CG_N}"] = c
+    require(c == {"gram": 0, "chol_inv": 0}, f"cg predict: no kernel launch (products), got {c}")
+    (mu_l, var_l), leaf_s, _ = timed(lambda: forest_predict_leaf(*args, train_mask=mask))
+    ok_mu, err_mu = within(torch, mu_c, mu_l, ORACLE_ATOL, ORACLE_RTOL)
+    ok_var, err_var = within(torch, var_c, var_l, ORACLE_ATOL, ORACLE_RTOL)
+    require(ok_mu and ok_var, f"cg against leaf predict at N={CG_N}: |mu diff| {err_mu}, "
+                              f"|var diff| {err_var} within {ORACLE_ATOL} + {ORACLE_RTOL} |value|")
+    flat = flatten_batch(model.forest)
+    pick = slice(0, CG_ORACLE_SAMPLES)
+    tl = route_forest(flat, train_x, ft, depth)[pick]
+    cl = route_forest(flat, C, ft, depth)[pick]
+    mu64, var64 = oracle_posterior(torch, tl, cl, mask, train_y, model.noise.reshape(-1)[pick],
+                                   model.scale.reshape(-1)[pick])
+    ok_mu, err_mu64 = within(torch, mu_c[pick], mu64, ORACLE_ATOL, ORACLE_RTOL)
+    ok_var, err_var64 = within(torch, var_c[pick], var64, ORACLE_ATOL, ORACLE_RTOL)
+    require(ok_mu and ok_var, f"cg predict against the float64 dense oracle: |mu diff| "
+                              f"{err_mu64}, |var diff| {err_var64}")
+    mu_s, sd_s = sur4.predict(C_np)
+    sur4.predict_backend = "leaf"
+    mu_sl, sd_sl = sur4.predict(C_np)
+    ok, err_sur = within(torch, torch.as_tensor(mu_s), torch.as_tensor(mu_sl), 1e-3, 1e-3)
+    ok_sd, err_sd = within(torch, torch.as_tensor(sd_s), torch.as_tensor(sd_sl), 1e-3, 1e-3)
+    require(ok and ok_sd, f"BARKSurrogate cg against leaf: |mu| {err_sur}, |std| {err_sd}")
+    log(f"[predict cg N={CG_N}] S={model.noise.numel()}, {CG_CANDIDATES} "
+        f"candidates on {smi}: cg {cg_s * 1e3:.1f} ms in {trips} CG trips, leaf "
+        f"{leaf_s * 1e3:.1f} ms; cg vs leaf max |mu diff| {err_mu:.3e}, |var diff| "
+        f"{err_var:.3e}; vs float64 on {CG_ORACLE_SAMPLES} samples {err_mu64:.3e} / "
+        f"{err_var64:.3e}; through BARKSurrogate.predict |mu| {err_sur:.3e}, |std| {err_sd:.3e}")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -1135,13 +1445,13 @@ def main() -> int:
             args = (leaves[n], leaves[mcols], None, None)
         t = time_k1(torch, gram_module, *args, 64)
         name = f"({SLICE_CHAINS},{n},{mcols})"
+        require(t["device_ms"] > 0, f"K1 {name}: a device time")
         k1_times[name] = t
         log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: device "
             f"{t['device_ms']} ms ({t['kernels_per_call']} kernels a call: {t['kernel_ms']}), "
             f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
             f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
             f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
-        require(t["device_ms"] is not None, f"K1 {name}: the profiler saw the kernel")
 
     # --- 4. K2 against its plain version -----------------------------------
     def spd_batch(n: int) -> torch.Tensor:
@@ -1176,7 +1486,7 @@ def main() -> int:
         require(torch.equal(torch.triu(E, 1), torch.zeros_like(E)), f"K2 {name}: E lower")
         t = time_k2(torch, lambda: chol_inv_cuda(K), lambda: chol_inv_plain(K), K.shape[0], n,
                     "chol_inv_kernel")
-        require(t["device_ms"] is not None, f"K2 {name}: the profiler saw the kernel")
+        require(t["device_ms"] > 0, f"K2 {name}: a device time")
         k2_times[name] = t
         log(f"[K2] {name}: |L-L_plain| {err_l:.3e}, |EL-I| {resid:.3e}, "
             f"|E-E_plain| {err_e:.3e}; kernel device {t['device_ms']:.5f} ms, call "
@@ -1422,17 +1732,23 @@ def main() -> int:
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 10. the chol oracle, posterior function sampling, the CG predict ----
+    path_launches, path_times = phase_oracle_sampling_cg(torch, dev, smi, tf)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
 
     k1 = k1_times[f"({SLICE_CHAINS},50,50)"]
     k2 = k2_times["(128,50,50)"]
     k1_keys = ("device_ms", "kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-               "bound_by", "share_of_bound", "symmetric")
+               "bound_by", "share_of_bound", "symmetric", "device_source", "library_source")
     kernels = [
         {"name": "gram", "route": "cuda", "source": "bark_tpu_torch/csrc/gram.cu",
          "replaces": "bark_tpu/ops/pallas_gram.py:40",
          "launches": launches[f"dense N={DENSE_NS[0]}"]["gram"],
          "launches_by_path": {p: c["gram"] for p, c in launches.items()},
          "max_abs_err": k1_err, "ms": k1["device_ms"], "device_ms": k1["device_ms"],
+         "device_source": k1["device_source"],
          "call_ms": k1["call_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"],
@@ -1443,6 +1759,7 @@ def main() -> int:
          "launches_by_path": {p: c["chol_inv"] for p, c in launches.items()},
          "max_abs_err": k2_err, "max_rel_err_leaf": k2_leaf_err,
          "ms": k2["device_ms"], "device_ms": k2["device_ms"], "call_ms": k2["call_ms"],
+         "device_source": k2["device_source"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"], "times": k2_times},
     ]

@@ -85,7 +85,7 @@ def case():
     ft = dom.feature_types()
     jargs = (model, jnp.asarray(X), jnp.asarray(y), jnp.asarray(ft), MAX_DEPTH)
     t = torch.as_tensor
-    targs = (model_from_reference(model), t(X), t(y), t(ft), MAX_DEPTH)
+    targs = (model_from_reference(model, device="cpu"), t(X), t(y), t(ft), MAX_DEPTH)
     return {
         "jargs": jargs, "targs": targs, "jmask": jnp.asarray(mask), "tmask": t(mask),
         "jcands": jnp.asarray(cands), "tcands": t(cands), "jft": jnp.asarray(ft), "tft": t(ft),
@@ -95,7 +95,7 @@ def case():
 def test_num_null_trees_and_nonull_indicator_are_exact(case):
     model = case["jargs"][0]
     flat = jax.tree.map(lambda a: a.reshape(-1, M, NODE_LIMIT), model.forest)
-    port = forest_from_reference(flat)
+    port = forest_from_reference(flat, device="cpu")
     n_null = tforest.num_null_trees(port)
     np.testing.assert_array_equal(n_null.numpy(), np.asarray(jforest.num_null_trees(flat)))
     assert n_null.dtype == torch.int32 and 0 < int(n_null.sum()) < S * M
@@ -129,7 +129,7 @@ def test_dense_build_and_scores_match_reference(case, masked):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max(), name
     want = np.asarray(jacq.evaluate_acquisition(ref, case["jcands"], case["jft"], MAX_DEPTH))
-    converted = acquisition_state_from_reference(ref)
+    converted = acquisition_state_from_reference(ref, device="cpu")
     assert isinstance(converted, tacq.AcquisitionState)
     for state in (acq, converted):
         got = tacq.evaluate_acquisition(state, case["tcands"], case["tft"], MAX_DEPTH)
@@ -156,7 +156,7 @@ def test_factored_build_and_scores_match_reference(case, row_block, monkeypatch)
     np.testing.assert_array_equal(acq.var0.numpy(), np.asarray(ref.var0))
     np.testing.assert_array_equal(acq.scale.numpy(), np.asarray(ref.scale))
     want = np.asarray(jacq.evaluate_acquisition(ref, case["jcands"], case["jft"], MAX_DEPTH))
-    converted = acquisition_state_from_reference(ref)
+    converted = acquisition_state_from_reference(ref, device="cpu")
     assert isinstance(converted, tacq.AcquisitionStateLR)
     for state in (acq, converted):
         got = tacq.evaluate_acquisition(state, case["tcands"], case["tft"], MAX_DEPTH)
@@ -189,7 +189,7 @@ def test_thompson_build_and_scores_match_reference(case):
     assert got.shape == want.shape == (M * MAX_LEAVES,)
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
     want = np.asarray(jacq.evaluate_acquisition(ref, case["jcands"], case["jft"], MAX_DEPTH))
-    converted = acquisition_state_from_reference(ref)
+    converted = acquisition_state_from_reference(ref, device="cpu")
     assert isinstance(converted, tacq.AcquisitionStateTS)
     for state in (acq, converted):
         got = tacq.evaluate_acquisition(state, case["tcands"], case["tft"], MAX_DEPTH)

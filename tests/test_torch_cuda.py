@@ -265,3 +265,25 @@ def test_robust_chol_inv_logdet_refactors_the_failed_matrix_on_the_card(dev):
     before = chol_inv_cuda.launches
     robust_chol_inv_logdet(K[:5])
     assert chol_inv_cuda.launches == before + 1
+
+
+def test_kernel_time_falls_back_to_events_on_the_card(dev, monkeypatch):
+    """With every profiler capture refused, ``kernel_time`` times K2 at the
+    PT round's (64, 256, 256) with CUDA events behind a device spin: one
+    launch a call, a time between half and 1.1 times the call time (events
+    around back-to-back calls, the host's enqueueing included)."""
+    from bark_tpu_torch.benchmarks import kernel_timing
+
+    A = torch.as_tensor(_spd(np.random.default_rng(0), 64, 256), device=dev)
+    run = lambda: chol_inv_cuda(A)  # noqa: E731
+    call = kernel_timing.call_ms(torch, run)
+
+    def refused(*_, **__):
+        raise RuntimeError("the profiler captured 0 of the 20 device kernels")
+
+    monkeypatch.setattr(kernel_timing, "device_ms", refused)
+    before = chol_inv_cuda.launches
+    ms, per_call, split, source = kernel_timing.kernel_time(torch, run, "chol_inv_kernel", 1)
+    assert source == "events" and per_call == 1 and split == {}
+    assert chol_inv_cuda.launches - before == 3 + 20 + 3 * 20
+    assert 0.5 * call <= ms <= 1.1 * call, (ms, call)

@@ -101,7 +101,7 @@ def test_route_forest_matches_reference_on_prior_forests(node_limit):
     X = dom.sample(301, np.random.default_rng(1)).astype(np.float32)
     ft = dom.feature_types()
     port_leaves = tf.route_forest(
-        forest_from_reference(forests), torch.as_tensor(X), torch.as_tensor(ft)
+        forest_from_reference(forests, device="cpu"), torch.as_tensor(X), torch.as_tensor(ft)
     ).numpy()
     assert port_leaves.shape == (4, 301, 10)
     for s in range(4):
@@ -112,7 +112,7 @@ def test_route_forest_matches_reference_on_prior_forests(node_limit):
 
 def test_pack_unpack_round_trip_matches_reference():
     forests = prior_forests(mixed_domain())
-    port = forest_from_reference(forests)
+    port = forest_from_reference(forests, device="cpu")
     packed = tf.pack_forest(port)
     np.testing.assert_array_equal(
         packed.numpy(), np.asarray(jf.pack_forest(forests))
@@ -134,13 +134,13 @@ def test_model_conversion_round_trip():
     model = JaxModel(
         forests, jnp.asarray([0.1, 0.2, 0.3, 0.4], jnp.float32), jnp.ones(4, jnp.float32)
     )
-    port = model_from_reference(model)
+    port = model_from_reference(model, device="cpu")
     assert port.forest.threshold.dtype == torch.float32 and port.forest.left.dtype == torch.int32
     back = to_numpy(port)
     for k in tf.FOREST_FIELDS:
         np.testing.assert_array_equal(back["forest"][k], np.asarray(getattr(forests, k)))
     np.testing.assert_array_equal(back["noise"], np.asarray(model.noise))
-    again = model_from_reference(back)
+    again = model_from_reference(back, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(again.forest, port.forest))
 
 

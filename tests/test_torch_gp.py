@@ -95,7 +95,7 @@ def test_forest_predict_matches_reference(backend, masked):
         jnp.asarray(cands), jnp.asarray(ft), MAX_DEPTH,
         train_mask=None if mask is None else jnp.asarray(mask),
     )
-    port = model_from_reference(model)
+    port = model_from_reference(model, device="cpu")
     t = torch.as_tensor
     mu, var = tfn(
         port.forest, port.noise, port.scale, t(X), t(y), t(cands), t(ft), MAX_DEPTH,
@@ -111,7 +111,7 @@ def test_forest_predict_matches_reference(backend, masked):
 def test_leaf_predict_equals_dense_predict():
     """The two backends compute one posterior: rtol 5e-4, atol 5e-5."""
     dom = mixed_domain()
-    port = model_from_reference(prior_model(dom, seed=4))
+    port = model_from_reference(prior_model(dom, seed=4), device="cpu")
     X, y, mask, cands = (torch.as_tensor(a) for a in padded_data(dom, seed=5))
     ft = torch.as_tensor(dom.feature_types())
     args = (port.forest, port.noise, port.scale, X, y, cands, ft, MAX_DEPTH)
@@ -313,9 +313,8 @@ def test_fit_warm_starts_and_records_diagnostics(monkeypatch):
 
 
 def test_device_must_be_asked_for():
-    """No CUDA here: the default device raises; the tempered fit style is
-    taken, an unknown one refused, and unported options name their ROADMAP
-    item."""
+    """No CUDA here: the default device raises; the tempered fit style and
+    the cg predict backend are taken, an unknown one of each refused."""
     dom = domain_from_reference(mixed_domain())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -328,8 +327,7 @@ def test_device_must_be_asked_for():
     assert (tempered.fit_style, tempered.num_replicas, tempered.beta_min) == ("tempered", 3, 0.1)
     with pytest.raises(ValueError, match="fit_style"):
         BARKSurrogate(dom, fit_style="annealed", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BARKSurrogate(dom, predict_backend="cg", device="cpu")
+    assert BARKSurrogate(dom, predict_backend="cg", device="cpu").predict_backend == "cg"
     with pytest.raises(ValueError):
         BARKSurrogate(dom, predict_backend="nope", device="cpu")
 
@@ -339,7 +337,7 @@ def test_leaf_budget_check_refuses_an_overfull_warm_start():
     params = SamplerParams(num_trees=M, node_limit=NODE_LIMIT, num_chains=CHAINS * SAMPLES,
                            refresh_style="leaf", scan_style="coeff", leaf_budget=M + 1)
     sur = BARKSurrogate(dom, params, device="cpu")
-    model = model_from_reference(prior_model(mixed_domain()))
+    model = model_from_reference(prior_model(mixed_domain()), device="cpu")
     flat = type(model)(
         type(model.forest)(*(t.reshape(-1, M, NODE_LIMIT) for t in model.forest)),
         model.noise.reshape(-1), model.scale.reshape(-1),

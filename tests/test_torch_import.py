@@ -35,6 +35,8 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.utils.diagnostics, bark_tpu_torch.benchmarks.kernel_timing\n"
         "import bark_tpu_torch.fitting.prior, bark_tpu_torch.parallel.tempering\n"
         "import bark_tpu_torch.parallel.smc, bark_tpu_torch.benchmarks.ab_tempered\n"
+        "import bark_tpu_torch.models.sampling, bark_tpu_torch.ops.iterative\n"
+        "import bark_tpu_torch.benchmarks.stationary\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )

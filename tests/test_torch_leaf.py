@@ -85,7 +85,7 @@ def test_leaf_indicator_matches_reference(node_limit):
     m, chains = 10, 4
     forests = _prior(m, chains, node_limit=node_limit)
     X, _, _, ft = _problem(301, seed=1)
-    port = forest_from_reference(forests)
+    port = forest_from_reference(forests, device="cpu")
     leaves = tf.route_forest(port, X, ft)  # (C, N, m)
     mask = torch.as_tensor((np.random.default_rng(2).uniform(size=301) > 0.2).astype(np.float32))
 
@@ -161,7 +161,7 @@ def test_resolve_styles_matches_reference(n):
     assert (auto.scan_style, auto.refresh_style) == (
         ("coeff", "leaf") if n >= 256 else ("plain", "onesolve")
     )
-    for other in ({"kernel_backend": "chol"}, {"hot_style": "select"}, {"subspace_mode": "carry"}):
+    for other in ({"kernel_backend": "woodbury"}, {"hot_style": "select"}, {"subspace_mode": "carry"}):
         with pytest.raises(NotImplementedError):
             _resolve_styles(SamplerParams(**other), n)
 
@@ -176,7 +176,7 @@ def test_over_budget_initial_forest_gives_nan_mll():
     m = 8
     X, y, bounds, ft = _problem(20)
     forests = _prior(m, 2, seed=4)
-    port = forest_from_reference(forests)
+    port = forest_from_reference(forests, device="cpu")
     totals = terminal_mask(port).sum((1, 2))
     assert totals[0] != totals[1]
     budget = int(totals.min())
@@ -211,7 +211,7 @@ def test_leaf_padded_run_equals_unpadded():
     yp = torch.cat([y, torch.zeros(pad)])
     mask = torch.cat([torch.ones(n), torch.zeros(pad)])
     params = SamplerParams(num_trees=m, **LEAF_PINS)
-    forest = forest_from_reference(_prior(m, 2, seed=6))
+    forest = forest_from_reference(_prior(m, 2, seed=6), device="cpu")
     noise0, scale0 = torch.tensor([0.1, 0.3]), torch.tensor([1.0, 0.7])
     plain = init_chain_state(forest, noise0, scale0, X, y, ft, params, bounds=bounds)
     padded = init_chain_state(forest, noise0, scale0, Xp, yp, ft, params, mask, bounds)
@@ -269,6 +269,6 @@ def test_leaf_run_chain_state_consistent_with_rebuild():
     dense = 0.5 * (-(z ** 2).sum((1, 2)) - 2.0 * torch.log(torch.diagonal(Lk, dim1=-2, dim2=-1)).sum(-1))
     torch.testing.assert_close(st.mll.double(), dense, rtol=1e-4, atol=1e-3)
 
-    back = chain_state_from_reference(to_numpy(st))
+    back = chain_state_from_reference(to_numpy(st), device="cpu")
     assert back.kern.K_inv is None and torch.equal(back.kern.L, st.kern.L)
     assert torch.equal(back.kern.K_logdet, st.kern.K_logdet)

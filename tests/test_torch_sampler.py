@@ -236,7 +236,7 @@ def test_init_chain_state_matches_reference(reference, case):
     n = CASES[case][0]
     X, y, bounds, ft = _inputs(n)
     forest = forest_from_reference(
-        {k: reference[f"{case}/forest0.{k}"] for k in FOREST_FIELDS}
+        {k: reference[f"{case}/forest0.{k}"] for k in FOREST_FIELDS}, device="cpu"
     )
     state = init_chain_state(
         forest, torch.as_tensor(reference[f"{case}/noise0"]),
@@ -258,7 +258,7 @@ def test_steps_replay_reference(reference, case):
     X, y, bounds, ft = _inputs(n)
     params = _params(case)
     budget = _leaf_budget(params, n)
-    state = chain_state_from_reference(_state_dict(reference, case, "s0"))
+    state = chain_state_from_reference(_state_dict(reference, case, "s0"), device="cpu")
     leaf_tier = state.kern.L is not None
     parted = [False] * NUM_CHAINS
     decided = {0: 0, 1: 0}
@@ -332,7 +332,7 @@ def test_padded_run_equals_unpadded(reference):
     mask = torch.cat([torch.ones(n), torch.zeros(pad)])
     params = SamplerParams(num_trees=NUM_TREES)
     forest = forest_from_reference(
-        {k: reference[f"n20/forest0.{k}"] for k in FOREST_FIELDS}
+        {k: reference[f"n20/forest0.{k}"] for k in FOREST_FIELDS}, device="cpu"
     )
     noise0 = torch.as_tensor(reference["n20/noise0"])
     scale0 = torch.as_tensor(reference["n20/scale0"])
@@ -386,7 +386,7 @@ def test_run_chain_state_consistent_with_rebuild():
     "n,kwargs",
     [
         (256, {"refresh_style": "onesolve"}),
-        (50, {"kernel_backend": "chol"}),
+        (50, {"kernel_backend": "woodbury"}),
         (50, {"scan_style": "lowrank"}),
         (50, {"refresh_style": "pair"}),
         (50, {"hot_style": "select"}),
@@ -394,8 +394,9 @@ def test_run_chain_state_consistent_with_rebuild():
     ],
 )
 def test_resolve_styles_runs_only_the_dense_default(n, kwargs):
-    """Anything but the two tiers' shipped lowerings raises (a pinned
-    onesolve refresh at N=256 resolves to the lowrank scan)."""
+    """Anything but the two tiers' shipped lowerings (and the chol
+    oracle) raises (a pinned onesolve refresh at N=256 resolves to the
+    lowrank scan)."""
     with pytest.raises(NotImplementedError):
         _resolve_styles(SamplerParams(**kwargs), n)
 

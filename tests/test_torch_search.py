@@ -109,7 +109,7 @@ def test_node_subspace_is_exact():
     dom = mixed_domain()
     forest = prior_forest(dom, seed=2, num=3)
     bounds, ft = dom.bounds("bitmask"), dom.feature_types()
-    port = forest_from_reference(forest)
+    port = forest_from_reference(forest, device="cpu")
     jb, jft = jnp.asarray(bounds), jnp.asarray(ft)
     walk = jax.jit(jax.vmap(jax.vmap(
         lambda tree, node: jax_node_subspace(tree, node, jb, jft, MAX_DEPTH)
@@ -125,7 +125,7 @@ def test_node_subspace_is_exact():
 def test_leaf_box_is_exact():
     dom = mixed_domain()
     ref = reference_state(dom)
-    acq = acquisition_state_from_reference(ref)
+    acq = acquisition_state_from_reference(ref, device="cpu")
     bounds, ft = dom.bounds("bitmask"), dom.feature_types()
     for x in dom.sample(8, np.random.default_rng(4)):
         want = jsearch._leaf_box(
@@ -293,7 +293,7 @@ def test_propose_with_replayed_draws_finds_the_reference_optimum(constrained):
     dom = mixed_domain(linear_constraints(jcons) if constrained else ())
     pdom = domain_from_reference(dom)
     ref = reference_state(dom, seed=3)
-    acq = acquisition_state_from_reference(ref)
+    acq = acquisition_state_from_reference(ref, device="cpu")
     ft = dom.feature_types()
     key = jax.random.key(21)
     seeds = dom.sample(3, np.random.default_rng(8))
@@ -345,7 +345,8 @@ def test_constrained_proposals_survive_the_float32_round_trip():
     X = jnp.asarray(dom.sample(N, rng))
     y = jnp.asarray(rng.standard_normal(N), jnp.float32)
     acq = acquisition_state_from_reference(
-        jacq.build_acquisition(model, X, y, jnp.asarray(dom.feature_types()), MAX_DEPTH)
+        jacq.build_acquisition(model, X, y, jnp.asarray(dom.feature_types()), MAX_DEPTH),
+        device="cpu",
     )
     gen = torch.Generator().manual_seed(0)
     np_rng = np.random.default_rng(1)
@@ -359,7 +360,7 @@ def test_constrained_proposals_survive_the_float32_round_trip():
 
 def test_propose_raises_its_own_failure_when_no_score_is_finite():
     dom = mixed_domain()
-    acq = acquisition_state_from_reference(reference_state(dom))
+    acq = acquisition_state_from_reference(reference_state(dom), device="cpu")
     bad = acq._replace(K_inv=torch.full_like(acq.K_inv, torch.nan))
     draws = tsearch.draw_search(torch.Generator().manual_seed(0), CANDS, 5, 1, top_k=TOP_K)
     with pytest.raises(tsearch.AcquisitionFailure, match="non-finite"):
@@ -384,7 +385,7 @@ def test_search_runs_on_the_factored_and_thompson_states():
 
     model = model_from_reference(JaxModel(
         prior_forest(dom, 6), jnp.full((S,), 0.1, jnp.float32), jnp.ones((S,), jnp.float32)
-    ))
+    ), device="cpu")
     X, y = t(dom.sample(N, rng)), t(rng.standard_normal(N).astype(np.float32))
     states = [
         tacq.build_acquisition_lr(model, X, y, ft, MAX_DEPTH),

@@ -337,7 +337,7 @@ def test_beta_one_is_the_plain_step_bit_for_bit(reference, case):
     test_beta_one_matches_plain_step)."""
     X, y, bounds, ft = _inputs(N)
     params = SamplerParams(num_trees=M, **STEP_CASES[case])
-    state = chain_state_from_reference(_state(reference, f"{case}/s0"))
+    state = chain_state_from_reference(_state(reference, f"{case}/s0"), device="cpu")
     gen = torch.Generator().manual_seed(1)
     for _ in range(2):
         draws = draw_step(gen, len(BETAS), params)
@@ -361,7 +361,7 @@ def test_tempered_steps_replay_reference(reference, case):
     """Three steps at per-row beta (1, 0.3, 0.05) replay the reference's."""
     X, y, bounds, ft = _inputs(N)
     params = SamplerParams(num_trees=M, **STEP_CASES[case])
-    state = chain_state_from_reference(_state(reference, f"{case}/s0"))
+    state = chain_state_from_reference(_state(reference, f"{case}/s0"), device="cpu")
     assert (state.kern.L is not None) == (case == "leaf")
     betas = torch.tensor(BETAS)
     parted, decided = [False] * len(BETAS), {0: 0, 1: 0}
@@ -427,7 +427,7 @@ def test_swap_move_matches_reference(reference):
 
 
 def test_pt_swap_states_matches_reference(reference):
-    chains = chain_state_from_reference(_state(reference, "pss/s0"))
+    chains = chain_state_from_reference(_state(reference, "pss/s0"), device="cpu")
     mlls = torch.tensor([0.0, 0.4, -3.0, 0.1])
     for parity in (0, 1):
         u = torch.as_tensor(reference[f"pss/p{parity}/u"])
@@ -760,7 +760,7 @@ def test_convert_pt_state(reference):
     from bark_tpu_torch.convert import pt_state_from_reference
 
     st = pt_state_from_reference({"chains": _state(reference, "pss/s0"),
-                                  "betas": reference["pt/ladder"]})
+                                  "betas": reference["pt/ladder"]}, device="cpu")
     assert st.betas.shape == (1, R) and st.chains.noise.shape == (R,)
     np.testing.assert_array_equal(st.betas[0].numpy(), reference["pt/ladder"])
 

@@ -105,3 +105,84 @@ def test_device_ms_takes_a_short_capture_again(monkeypatch, short, ok):
     else:
         with pytest.raises(RuntimeError, match="in each of 3 captures"):
             kernel_timing.device_ms(torch, run, "gram", CALLS, launches=3)
+
+
+@pytest.mark.parametrize(
+    "captures, launches, source",
+    [
+        ([k1_events(2 * CALLS, CALLS)], 3, "profiler"),
+        ([k1_events(0, 0)] * 3, 3, "events"),  # every capture short: refused, then events
+        ([k1_events(0, 0)], None, "events"),  # no count expected and nothing captured
+    ],
+    ids=["profiler", "short", "empty"],
+)
+def test_kernel_time_falls_back_to_events(monkeypatch, captures, launches, source):
+    """``kernel_time`` takes the profiler's time where a capture holds the
+    kernels, and CUDA events (``event_ms``) where none does."""
+    import torch
+    import torch.profiler
+
+    from bark_tpu_torch.benchmarks import kernel_timing
+
+    it = iter(captures)
+
+    class FakeProfile:
+        def __init__(self, **_):
+            self.events = next(it)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(kernel_timing, "event_ms", lambda torch, fn: 0.5)
+    ms, per_call, split, got = kernel_timing.kernel_time(torch, lambda: None, "gram", launches)
+    assert got == source
+    if source == "profiler":
+        assert (ms, per_call, len(split)) == (pytest.approx(0.014), 3, 2)
+    else:
+        assert (ms, per_call, split) == (0.5, launches, {})
+
+
+def test_event_ms_times_calls_queued_behind_a_spin():
+    """``event_ms`` spins the device before its start event, then times
+    ``calls`` calls between two events: the median of ``reps`` over calls."""
+    from bark_tpu_torch.benchmarks import kernel_timing
+
+    log = []
+
+    class Event:
+        clock = iter([0.0, 8.0, 10.0, 14.0, 20.0, 30.0])
+
+        def __init__(self, **_):
+            self.t = None
+
+        def record(self):
+            self.t = next(Event.clock)
+            log.append("record")
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    cuda = SimpleNamespace(
+        Event=Event, synchronize=lambda: None, current_device=lambda: 0,
+        get_device_properties=lambda d: SimpleNamespace(clock_rate=1_000_000),
+        _sleep=lambda cycles: log.append(("spin", cycles)),
+    )
+    fake = SimpleNamespace(cuda=cuda)
+    calls = []
+    ms = kernel_timing.event_ms(fake, lambda: calls.append(1), calls=4, reps=3)
+    assert len(calls) == 3 + 4 + 3 * 4
+    spins = [e for e in log if e != "record"]
+    assert len(spins) == 3 and all(c >= 1_000_000 for _, c in spins)
+    assert log[:3] == [spins[0], "record", "record"]
+    assert ms == pytest.approx(8.0 / 4)  # median of 8, 4 and 10 ms over 4 calls
