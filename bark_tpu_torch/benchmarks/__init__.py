@@ -1,12 +1,14 @@
 """Benchmark objectives of the port, by registry name.
 
-Counterpart of ``bark_tpu/benchmarks/__init__.py`` with the one benchmark
-ported so far: ``map_benchmark("TreeFunction", ...)``.
+Counterpart of ``bark_tpu/benchmarks/__init__.py`` with the benchmarks
+ported so far: ``map_benchmark("TreeFunction", ...)`` and the two-fidelity
+``map_benchmark("CurrinExp2D")``.
 """
 
+from bark_tpu_torch.benchmarks.multi_fidelity import CurrinExp2D
 from bark_tpu_torch.benchmarks.tree_function import TreeFunction
 
-BENCHMARK_MAP: dict[str, type] = {"TreeFunction": TreeFunction}
+BENCHMARK_MAP: dict[str, type] = {"TreeFunction": TreeFunction, "CurrinExp2D": CurrinExp2D}
 
 
 def map_benchmark(name: str, **kwargs):

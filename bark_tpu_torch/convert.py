@@ -23,10 +23,13 @@ from bark_tpu_torch import domain as port_domain
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.sampler import BARKModel, ChainState, KernState
 from bark_tpu_torch.forest import FOREST_FIELDS, Forest, forest_from_numpy
+from bark_tpu_torch.models.leafgp import LeafGPSurrogate
+from bark_tpu_torch.models.mogp import LeafMOGPSurrogate, MOGPParams
 from bark_tpu_torch.models.surrogate import BARKPriorSurrogate, BARKSurrogate, resolve_device
 from bark_tpu_torch.optimizer.acquisition import (
     AcquisitionState,
     AcquisitionStateLR,
+    AcquisitionStateMOGP,
     AcquisitionStateTS,
 )
 from bark_tpu_torch.parallel.tempering import PTState
@@ -147,9 +150,50 @@ def surrogate_from_reference(surrogate, device=None):
     return port
 
 
+def leafgp_from_reference(surrogate, device=None) -> LeafGPSurrogate:
+    """A fitted reference LeafGPSurrogate as the port's: its domain, booster
+    options, (1, m, node_limit) forest, (1,) noise and scale, y scaler and
+    training data, so that both packages predict from the same state."""
+    port = LeafGPSurrogate(
+        domain_from_reference(surrogate.domain),
+        num_boost_round=surrogate.num_boost_round, max_depth=surrogate.max_depth,
+        node_limit=surrogate.node_limit, seed=surrogate.seed, device=device,
+    )
+    dev = port.device
+    port.model = model_from_reference(surrogate.model, dev)
+    port.scaler.mean, port.scaler.std = surrogate.scaler.mean, surrogate.scaler.std
+    train_x, train_y = surrogate.train_data
+    port.train_data = (
+        _tensor(train_x, torch.float32, dev), _tensor(train_y, torch.float32, dev)
+    )
+    port.train_mask = None
+    return port
+
+
+def mogp_from_reference(mogp, device=None) -> LeafMOGPSurrogate:
+    """A fitted reference LeafMOGPSurrogate as the port's: its domain,
+    options, (m, node_limit) forest, MOGPParams, the ``train`` tuple (X,
+    tasks, y, leaves, Gram) and the y scaler."""
+    port = LeafMOGPSurrogate(
+        domain_from_reference(mogp.domain), num_tasks=mogp.num_tasks,
+        num_boost_round=mogp.num_boost_round, max_depth=mogp.max_depth,
+        node_limit=mogp.node_limit, seed=mogp.seed, device=device,
+    )
+    dev = port.device
+    f32 = torch.float32
+    port.forest = forest_from_reference(mogp.forest, dev)
+    port.params = MOGPParams(*(_tensor(_get(mogp.params, k), f32, dev)
+                               for k in MOGPParams._fields))
+    X, tasks, y, leaves, gram = mogp.train
+    port.train = (_tensor(X, f32, dev), _tensor(tasks, torch.int64, dev), _tensor(y, f32, dev),
+                  _tensor(leaves, torch.int32, dev), _tensor(gram, f32, dev))
+    port.scaler.mean, port.scaler.std = mogp.scaler.mean, mogp.scaler.std
+    return port
+
+
 def acquisition_state_from_reference(state, device=None):
-    """A reference AcquisitionState, AcquisitionStateLR or
-    AcquisitionStateTS (told apart by their fields) as the port's."""
+    """A reference AcquisitionState, AcquisitionStateLR, AcquisitionStateTS
+    or AcquisitionStateMOGP (told apart by their fields) as the port's."""
     f32 = torch.float32
     fields = state if isinstance(state, dict) else state._asdict()
     forest = forest_from_reference(fields["forest"], device)
@@ -157,6 +201,8 @@ def acquisition_state_from_reference(state, device=None):
         k: _tensor(v, torch.int32 if k == "train_leaves" else f32, device)
         for k, v in fields.items() if k != "forest"
     }
+    if "k_scale" in rest:
+        return AcquisitionStateMOGP(forest=forest, **rest)
     if "K_inv" in rest:
         return AcquisitionState(forest=forest, **rest)
     if "beta" in rest:

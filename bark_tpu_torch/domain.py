@@ -10,7 +10,9 @@ consumes,
   - ``feature_types()``: ``(D,)`` int32 with Cat=0, Int=1, Cont=2,
 
 and :meth:`Domain.sample`, which consumes the numpy generator exactly as the
-reference does, so the same seed gives the same points. Data is ordinal
+reference does, so the same seed gives the same points
+(:meth:`Domain.sample_sobol` draws scrambled Sobol points from a seed, as
+the reference does). Data is ordinal
 encoded: a categorical entry is the category index
 (:meth:`Domain.transform`); :meth:`Domain.round` projects arbitrary points
 back onto the domain. A domain may carry constraints
@@ -85,6 +87,10 @@ class Domain:
     def input_keys(self) -> list[str]:
         return [f.key for f in self.inputs]
 
+    def cat_indices(self) -> list[int]:
+        """Indices of the categorical features."""
+        return [i for i, f in enumerate(self.inputs) if isinstance(f, CategoricalInput)]
+
     def feature_types(self) -> np.ndarray:
         """Cat=0 / Int=1 / Cont=2 per feature."""
         codes = []
@@ -137,6 +143,29 @@ class Domain:
                 cols.append(rng.integers(f.bounds[0], f.bounds[1] + 1, size=n))
             else:
                 cols.append(rng.uniform(f.bounds[0], f.bounds[1], size=n))
+        return np.stack(cols, axis=1).astype(np.float32)
+
+    def sample_sobol(self, n: int, seed: int = 0) -> np.ndarray:
+        """Scrambled Sobol points, ordinal-encoded: ``(n, D)`` float32.
+
+        Discrete features are mapped by stratified flooring, so every
+        category and integer level receives equal measure.
+        """
+        from scipy.stats import qmc
+
+        u = qmc.Sobol(d=self.dim, scramble=True, seed=seed).random(n)
+        cols = []
+        for i, f in enumerate(self.inputs):
+            ui = u[:, i]
+            if isinstance(f, CategoricalInput):
+                k = len(f.categories)
+                cols.append(np.minimum(np.floor(ui * k), k - 1))
+            elif isinstance(f, IntegerInput):
+                lo, hi = f.bounds
+                cols.append(np.minimum(np.floor(lo + ui * (hi - lo + 1)), hi))
+            else:
+                lo, hi = f.bounds
+                cols.append(lo + ui * (hi - lo))
         return np.stack(cols, axis=1).astype(np.float32)
 
     def round(self, X: np.ndarray) -> np.ndarray:

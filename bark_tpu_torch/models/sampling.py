@@ -1,8 +1,7 @@
 """Posterior function sampling: optimum-value (f*) draws and Nystrom features.
 
-Counterpart of ``bark_tpu/models/sampling.py`` but for ``fstar_samples_mogp``,
-which waits for the multi-output GP. The reference ``vmap``-s one posterior
-sample over the batch; here every tensor carries the leading dimension
+Counterpart of ``bark_tpu/models/sampling.py``. The reference ``vmap``-s one
+posterior sample over the batch; here every tensor carries the leading dimension
 S = chains x samples, the S agreement Grams come from one launch of kernel
 K1 (``ops.gram``) and the S factorizations from kernel K2 (``ops.chol``,
 through ``ops.linalg.blocked_cholesky``). Every function that draws takes
@@ -17,7 +16,10 @@ its standard normals as a tensor, so a test can replay the reference's
     from it;
   - :func:`leaf_function_samples` / :func:`generate_fstar_samples_leaf`:
     exact joint draws in leaf space, one (r, r) factorization per sample
-    and no clamping.
+    and no clamping;
+  - :func:`fstar_samples_mogp`: f* draws from a LeafMOGP's target-fidelity
+    joint posterior, drawn on the host from the caller's numpy generator as
+    the reference draws them, so a seed replays them.
 
 Eigenvectors of the agreement kernel are not unique (it has many repeated
 and zero eigenvalues), so the dense sampler and the Nystrom features match
@@ -26,6 +28,7 @@ the reference through ``root root^T`` and ``phi phi^T``, not draw for draw.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bark_tpu_torch.fitting.sampler import BARKModel
@@ -196,3 +199,23 @@ def generate_fstar_samples_leaf(
     if train_mask is not None:
         draws = torch.where(train_mask > 0, draws, torch.inf)
     return draws.amin(-1)
+
+
+def fstar_samples_mogp(mogp, X_train, num_fstar: int, rng: np.random.Generator) -> np.ndarray:
+    """Optimum-value samples from a LeafMOGP's target-fidelity posterior:
+    ``(num_fstar,)`` numpy, in standardized units.
+
+    The joint latent posterior over the training sites at task 0
+    (``mogp._posterior_joint``: two K1 launches and a solve on the device)
+    is sampled on the host in float64 through an eigenvalue-clamped root of
+    its covariance, with ``rng.standard_normal((num_fstar, N))``, and each
+    draw minimized.
+    """
+    mu, cov = mogp._posterior_joint(X_train, np.zeros(len(X_train), np.int64))
+    mu = mu.cpu().numpy().astype(np.float64)
+    cov = cov.cpu().numpy().astype(np.float64)
+    w, V = np.linalg.eigh(0.5 * (cov + cov.T))
+    half = V * np.sqrt(np.clip(w, 1e-12, None))
+    eps = rng.standard_normal((num_fstar, len(mu)))
+    draws = mu[None, :] + eps @ half.T
+    return draws.min(axis=1)

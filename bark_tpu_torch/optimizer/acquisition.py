@@ -19,7 +19,9 @@ batch, for thousands of candidates at once. Three states:
   - factored (:func:`build_acquisition_lr`): everything in the r-dimensional
     leaf space, so scoring does not depend on N;
   - Thompson (:func:`build_acquisition_ts`): one exact posterior function
-    draw as leaf weights.
+    draw as leaf weights;
+  - multi-task (:func:`build_acquisition_mogp`): the target-fidelity LCB of
+    a fitted LeafMOGP, one forest.
 
 The reference ``vmap``-s one posterior sample; here every tensor carries the
 leading dimension S = chains x samples. The Thompson build's randomness
@@ -43,6 +45,7 @@ from bark_tpu_torch.forest import (
     num_null_trees,
     route_forest,
 )
+from bark_tpu_torch.models.mogp import _softplus, mogp_kernel, task_covariance
 from bark_tpu_torch.ops.linalg import (
     JITTER,
     blocked_cholesky,
@@ -372,6 +375,66 @@ def _evaluate_acquisition_ts(
     return h @ acq.theta
 
 
+# --- multi-task (multi-fidelity) acquisition --------------------------------
+
+
+class AcquisitionStateMOGP(NamedTuple):
+    """Target-fidelity acquisition over a fitted multi-task tree GP.
+
+    The kernel between a candidate at the target task 0 and training point
+    j at task t_j is ``agreement(x, x_j) * B[0, t_j]``: ``k_scale`` folds
+    that column of the index kernel, so scoring a batch is one K1 launch.
+    """
+
+    forest: Forest  # (1, m, node_limit): the booster forest
+    train_leaves: torch.Tensor  # (N, m)
+    k_scale: torch.Tensor  # (N,) B[0, task_j]
+    K_inv: torch.Tensor  # (N, N) inverse of the multi-task K plus noise
+    K_inv_y: torch.Tensor  # (N,)
+    prior_var: torch.Tensor  # () B[0, 0] (the agreement diagonal is 1)
+
+
+def build_acquisition_mogp(mogp) -> AcquisitionStateMOGP:
+    """The target-fidelity acquisition of a fitted ``LeafMOGPSurrogate``
+    (y in standardized units, as for the BARK states). The (N, N) kernel is
+    factored by :func:`robust_chol_inv_logdet`: one K2 launch up to N = 256,
+    ``blocked_cholesky``'s launches above.
+    """
+    check_matmul_precision()
+    _, tasks, y, leaves, gram = mogp.train
+    params = mogp.params
+    B = task_covariance(params)
+    noise = _softplus(params.raw_noise)[tasks]
+    K = mogp_kernel(gram, tasks, tasks, params) + torch.diag(JITTER + noise)
+    K_inv, _ = robust_chol_inv_logdet(K)
+    return AcquisitionStateMOGP(
+        forest=Forest(*(t[None] for t in mogp.forest)),
+        train_leaves=leaves,
+        k_scale=B[0, tasks],
+        K_inv=K_inv,
+        K_inv_y=K_inv @ y,
+        prior_var=B[0, 0],
+    )
+
+
+def _evaluate_acquisition_mogp(
+    acq: AcquisitionStateMOGP,
+    candidates: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = 16,
+    kappa: float = DEFAULT_KAPPA,
+) -> torch.Tensor:
+    """LCB at the target fidelity; lower is better. One K1 call (B, N)."""
+    tree = Forest(*(t[0] for t in acq.forest))
+    cand_leaves = route_forest(tree, candidates, feat_types, max_depth)
+    k_vec = gram_from_leaves(cand_leaves, acq.train_leaves, node_limit=tree.node_limit)
+    k_vec = k_vec * acq.k_scale[None, :]
+    mu = k_vec @ acq.K_inv_y
+    quad = ((k_vec @ acq.K_inv) * k_vec).sum(-1)
+    var = torch.clamp_min(acq.prior_var - quad, 1e-12)
+    return mu - kappa * torch.sqrt(var)
+
+
 def evaluate_acquisition(
     acq,
     candidates: torch.Tensor,
@@ -382,11 +445,14 @@ def evaluate_acquisition(
     """Score a ``(B, D)`` candidate batch, ``(B,)``; lower is better.
 
     Dispatches on the state type: dense :class:`AcquisitionState`, factored
-    :class:`AcquisitionStateLR` or Thompson :class:`AcquisitionStateTS`.
+    :class:`AcquisitionStateLR`, Thompson :class:`AcquisitionStateTS` or
+    multi-task :class:`AcquisitionStateMOGP`.
     """
     check_matmul_precision()
     if isinstance(acq, AcquisitionStateLR):
         return _evaluate_acquisition_lr(acq, candidates, feat_types, max_depth, kappa)
+    if isinstance(acq, AcquisitionStateMOGP):
+        return _evaluate_acquisition_mogp(acq, candidates, feat_types, max_depth, kappa)
     if isinstance(acq, AcquisitionStateTS):
         return _evaluate_acquisition_ts(acq, candidates, feat_types, max_depth, kappa)
     if isinstance(acq, AcquisitionState):

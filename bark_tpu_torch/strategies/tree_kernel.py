@@ -34,6 +34,7 @@ from bark_tpu_torch.domain import (
     IntegerInput,
 )
 from bark_tpu_torch.fitting.params import SamplerParams
+from bark_tpu_torch.models.leafgp import LeafGPSurrogate
 from bark_tpu_torch.models.surrogate import (
     BARKPriorSurrogate,
     BARKSurrogate,
@@ -60,8 +61,6 @@ logger = logging.getLogger(__name__)
 #: strategy names of the reference that the port does not have yet, with the
 #: ROADMAP.md queue 1 item that brings each
 _NOT_PORTED = {
-    "LeafGP": "item 10 (models/leafgp.py)",
-    "LeafMOGP": "item 10 (models/mogp.py and strategies/multi_fidelity.py)",
     "BART": "item 10 (fitting/bart.py and models/bart.py)",
     "BARTGrid": "item 10 (fitting/bart.py and models/bart.py)",
     "GridUCB": "item 10 (strategies/baselines.py)",
@@ -286,17 +285,33 @@ class RandomStrategy:
 
 def make_strategy(name: str, domain: Domain, seed: int = 0, device=None, **kwargs):
     """Strategy registry: ``"BARK"`` / ``"TreeKernel"``, ``"BARKPrior"`` (the
-    BO loop on :class:`BARKPriorSurrogate`) and ``"Random"``.
+    BO loop on :class:`BARKPriorSurrogate`), ``"LeafGP"`` (the BO loop on a
+    :class:`~bark_tpu_torch.models.leafgp.LeafGPSurrogate`; its
+    ``num_boost_round``, ``max_depth`` and ``node_limit`` go to the
+    surrogate), ``"LeafMOGP"`` (the
+    :class:`~bark_tpu_torch.strategies.multi_fidelity.MultiFidelityStrategy`,
+    which takes ``fidelity_costs``) and ``"Random"``.
 
-    ``device`` goes to the BARK strategies' surrogate (None = the CUDA
-    device); the random baseline touches no device. The reference's other
-    names raise ``NotImplementedError`` until their modules are ported.
+    ``device`` goes to the surrogate (None = the CUDA device); the random
+    baseline touches no device. The reference's other names raise
+    ``NotImplementedError`` until their modules are ported.
     """
     if name in ("BARK", "TreeKernel"):
         return TreeKernelStrategy(domain, seed=seed, device=device, **kwargs)
     if name == "BARKPrior":
         sur = BARKPriorSurrogate(domain, seed=seed, device=device)
         return TreeKernelStrategy(domain, surrogate=sur, seed=seed, **kwargs)
+    if name == "LeafGP":
+        sur = kwargs.pop("surrogate", None) or LeafGPSurrogate(
+            domain, seed=seed, device=device,
+            **{k: kwargs.pop(k) for k in ("num_boost_round", "max_depth", "node_limit")
+               if k in kwargs},
+        )
+        return TreeKernelStrategy(domain, surrogate=sur, seed=seed, **kwargs)
+    if name == "LeafMOGP":
+        from bark_tpu_torch.strategies.multi_fidelity import MultiFidelityStrategy
+
+        return MultiFidelityStrategy(domain, seed=seed, device=device, **kwargs)
     if name == "Random":
         return RandomStrategy(domain, seed=seed)
     if name in _NOT_PORTED:

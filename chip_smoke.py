@@ -149,9 +149,35 @@ in both of its tiers, in phases:
      mu and var against ``forest_predict_leaf`` and, on 4 samples, the
      float64 dense oracle (1e-3 + 1e-3 |value|), and
      ``BARKSurrogate(predict_backend="cg").predict`` against the leaf
-     backend; CG trips and ms.
+     backend; CG trips and ms;
+ 11. the booster forests, one forest (G = 1) in both kernels: (a) LeafGP
+     at full width on TreeFunction(dim=5, m=50, seed=1), 200 observations,
+     a 50-round depth-3 booster with 64 node slots (the native C++ booster,
+     built by g++ at first use): ``LeafGPSurrogate.fit`` (K1 once, Adam
+     through the library Cholesky), ``predict`` at 1024 held-out points,
+     ``build_acquisition`` and one scored batch of 4096, then five
+     iterations of ``make_strategy("LeafGP")`` at 4096 candidates x 4
+     rounds split into booster, hyperparameters, build, score and centring.
+     Checks: the Gram equal to its plain version (``torch.equal``), the
+     factor within K2's bound, mu, var and the LCB against a float64 dense
+     posterior on the CPU (1e-3 + 1e-3 |value|), held-out MSE under the
+     mean predictor's, the fitted MLL not below Adam's start, the launches
+     the code predicts, no fallback. (b) the documented flow on LeafGP:
+     TreeFunction(dim=2, m=10, seed=1), 8 initial points, 20 iterations,
+     1024 candidates x 3 rounds, seeds 0 and 1: every ask in the domain,
+     the best y below the initial best unless those hold the grid minimum.
+     (c) ``benchmarks/mf_bo.run_study`` at the example's defaults (seed 0,
+     6 initial points, 20 iterations, 256 candidates, 16 f*): fidelities in
+     {0, 1}, the cost strictly growing, the target incumbent never worse,
+     11 K1 launches an iteration. (d) one ``MultiFidelityStrategy.ask`` at
+     N = 300 (CurrinExp2D, 150 points at each fidelity, 2048 candidates x
+     3 rounds, 16 f*), split into fit, build, score, f* and the choice of
+     fidelity: K2 through ``blocked_cholesky`` (2 launches), the
+     target-fidelity LCB and ``_posterior_joint`` against float64 oracles
+     on the CPU, the fidelity equal to a CPU replay from the same state and
+     numpy seed. K1 and K2 timed at the single-forest shapes.
 
-The whole run takes eight to ten minutes of command time on an H100 (the sampler's
+The whole run takes nine to eleven minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
@@ -159,7 +185,10 @@ Prints what each phase found, then one JSON line with each kernel's launch
 count on the N=50 run and on each path ("launches_by_path": the sampler's
 four sizes, "predict", "acquisition", "bo_iteration", "tempered N=512", "smc
 N=200", "tempered_bo", "chol N=50/200/512", "leaf_function_samples",
-"generate_fstar_samples", "nystrom" and "predict cg N=4096"), error, times
+"generate_fstar_samples", "nystrom", "predict cg N=4096", and the booster
+forests' "leafgp fit N=200", "leafgp predict", "leafgp acquisition",
+"leafgp_bo_iteration", "leafgp loop seed 0/1", "mf_study", "mf fit N=300"
+and "mf ask N=300"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -203,6 +232,9 @@ CHOL_NS, CHOL_CHAINS, CHOL_STEPS = (50, 200, 512), 16, 5
 AGREE_N, AGREE_CHAINS = 50, 64
 SAMPLING_N, SAMPLING_POINTS, SAMPLING_DRAWS = 224, 1024, 256  # S = 4 chains x 8 samples
 CG_N, CG_CANDIDATES, CG_ORACLE_SAMPLES = 4096, 256, 4
+LEAFGP_N, LEAFGP_POINTS, LEAFGP_ITERATIONS, LEAFGP_ROUNDS = 200, 1024, 5, 4
+LEAFGP_LOOP_SEEDS, LEAFGP_LOOP_ITERATIONS = (0, 1), 20
+MF_ITERATIONS, MF_PER_FIDELITY = 20, 150
 
 
 def log(msg: str) -> None:
@@ -627,14 +659,17 @@ def phase_predict_acquisition(torch, dev, smi, tf):
     return launches, times
 
 
-def full_width_iterations(torch, s, bench, iterations, rounds, steps, tag):
+def full_width_iterations(torch, s, bench, iterations, rounds, fit_launches, tag,
+                          fit_parts=()):
     """``iterations`` BO iterations (``ask`` + ``add``, the refit included)
     of strategy ``s``, each timed and split into fit, build, score and
-    centring; both kernels' launches per iteration must be what the code
-    predicts: the refit K1 and K2 once per init and round (``steps`` + 1),
-    a dense build 1 + 1, a K1 call per scored batch, 7 K2 launches a
-    Thompson build (r = 1600). Returns (launches of the last iteration,
-    medians of the parts in seconds)."""
+    centring, and the parts of the refit named in ``fit_parts`` ((module,
+    function name, part) clocked where the refit calls them); both kernels'
+    launches per iteration must be what the code predicts: the refit's
+    ``fit_launches`` (the sampler's K1 and K2 once per init and round), a
+    dense build 1 + 1, a K1 call per scored batch, 7 K2 launches a Thompson
+    build (r = 1600). Returns (launches of the last iteration, medians of
+    the parts in seconds)."""
     import bark_tpu_torch.optimizer.search as search
     import bark_tpu_torch.strategies.tree_kernel as tk
     from bark_tpu_torch.ops.chol import chol_inv_cuda
@@ -642,7 +677,7 @@ def full_width_iterations(torch, s, bench, iterations, rounds, steps, tag):
     from bark_tpu_torch.ops.linalg import robust_cholesky
 
     lo, hi = bench.domain.bounds("ordinal").T
-    spent = {"build": 0.0, "score": 0.0, "centre": 0.0}
+    spent = {"build": 0.0, "score": 0.0, "centre": 0.0, **{p: 0.0 for _, _, p in fit_parts}}
     calls = {"dense": 0, "ts": 0}
 
     def clocked(part, fn, tally=None):
@@ -663,6 +698,7 @@ def full_width_iterations(torch, s, bench, iterations, rounds, steps, tag):
         (search, "evaluate_acquisition", clocked("score", search.evaluate_acquisition)),
         (search, "_leaf_box", clocked("centre", search._leaf_box)),
         (search, "_box_center", clocked("centre", search._box_center)),
+        *((mod, name, clocked(part, getattr(mod, name))) for mod, name, part in fit_parts),
     ]
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     rows, per_iter = [], None
@@ -688,14 +724,15 @@ def full_width_iterations(torch, s, bench, iterations, rounds, steps, tag):
             # fit: init + every refresh; dense build: 1 + 1; dense search: a K1
             # call per scored batch; a Thompson build: 7 K2 launches (r = 1600)
             want = {
-                "gram": steps + 1 + calls["dense"] * (1 + 1 + rounds),
-                "chol_inv": steps + 1 + calls["dense"] + 7 * calls["ts"]
+                "gram": fit_launches["gram"] + calls["dense"] * (1 + 1 + rounds),
+                "chol_inv": fit_launches["chol_inv"] + calls["dense"] + 7 * calls["ts"]
                 + robust_cholesky.escalations,
             }
             require(per_iter == want, f"{tag} iteration {i}: launches {per_iter}, "
                                       f"the code predicts {want} ({calls})")
             rows.append({"ask_s": t1 - t0, "fit_s": t2 - t1, **spent})
-            log(f"[{tag}] iteration {i}: {t2 - t0:.2f} s = fit {t2 - t1:.2f} + ask "
+            refit = "".join(f", {p} {spent[p]:.3f}" for _, _, p in fit_parts)
+            log(f"[{tag}] iteration {i}: {t2 - t0:.2f} s = fit {t2 - t1:.2f}{refit} + ask "
                 f"{t1 - t0:.2f} (build {spent['build']:.3f}, score {spent['score']:.3f}, "
                 f"centring {spent['centre']:.3f}); builds {calls}; launches {per_iter}")
     finally:
@@ -772,7 +809,9 @@ def phase_bo_loop(torch, dev, smi):
                       num_rounds=rounds)
     X = bench.domain.sample(50, np.random.default_rng(0))
     s.tell(X, bench.f(X))
-    per_iter, med = full_width_iterations(torch, s, bench, 5, rounds, steps, "BO full width")
+    per_iter, med = full_width_iterations(torch, s, bench, 5, rounds,
+                                          {"gram": steps + 1, "chol_inv": steps + 1},
+                                          "BO full width")
     log(f"[BO full width] dim 5, m 50, S={params.num_chains * params.num_samples}, {ACQ_BATCH} "
         f"candidates x {rounds + 1} batches, N=50-54 (bucket 64), medians of 5 on {smi}: "
         f"{med['ask_s'] + med['fit_s']:.2f} s per iteration = fit {med['fit_s']:.2f} + build "
@@ -1011,7 +1050,8 @@ def phase_tempered(torch, dev, smi):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     steps = bo_params.num_samples * bo_params.steps_per_sample
-    per_iter, med = full_width_iterations(torch, s, tf, TEMPERED_BO_ITERATIONS, rounds, steps,
+    per_iter, med = full_width_iterations(torch, s, tf, TEMPERED_BO_ITERATIONS, rounds,
+                                          {"gram": steps + 1, "chol_inv": steps + 1},
                                           "tempered BO")
     launches["tempered_bo"] = per_iter
     diag = sur.fit_diagnostics
@@ -1302,6 +1342,396 @@ def phase_oracle_sampling_cg(torch, dev, smi, tf):
         f"{leaf_s * 1e3:.1f} ms; cg vs leaf max |mu diff| {err_mu:.3e}, |var diff| "
         f"{err_var:.3e}; vs float64 on {CG_ORACLE_SAMPLES} samples {err_mu64:.3e} / "
         f"{err_var64:.3e}; through BARKSurrogate.predict |mu| {err_sur:.3e}, |std| {err_sd:.3e}")
+    return launches, times
+
+
+def mll64(torch, gram, y, noise, scale):
+    """Float64 MLL (up to the constant) of y under scale * gram + (jitter +
+    noise) I, on the CPU."""
+    g, y = gram.double().cpu(), y.double().cpu()
+    L = torch.linalg.cholesky(scale * g + (1e-6 + noise) * torch.eye(len(y), dtype=torch.float64))
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
+    return float(-0.5 * ((z * z).sum() + 2.0 * torch.log(torch.diagonal(L)).sum()))
+
+
+def mogp_oracle(torch, train_leaves, tasks, y, B, noise, new_leaves, new_tasks):
+    """Float64 joint posterior (mu, cov) of the multi-task GP at the new
+    points, by plain compares on the CPU; ``noise`` is per task."""
+    m = train_leaves.shape[-1]
+    tl, nl, t, tn = (a.cpu() for a in (train_leaves, new_leaves, tasks, new_tasks))
+    B = B.double().cpu()
+
+    def agree(a, b):
+        return (a[:, None, :] == b[None, :, :]).sum(-1).double() / m
+
+    K = agree(tl, tl) * B[t[:, None], t[None, :]] + torch.diag(1e-6 + noise.double().cpu()[t])
+    k = agree(nl, tl) * B[tn[:, None], t[None, :]]
+    chol = torch.linalg.cholesky(K)
+    mu = k @ torch.cholesky_solve(y.double().cpu()[:, None], chol)[:, 0]
+    cov = agree(nl, nl) * B[tn[:, None], tn[None, :]] - k @ torch.cholesky_solve(k.T, chol)
+    return mu, cov
+
+
+def phase_booster_forests(torch, dev, smi):
+    """Phase 11 (see the module docstring). Returns the launches by path and
+    the kernel times at the new shapes."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    import bark_tpu_torch.models.leafgp as leafgp
+    import bark_tpu_torch.optimizer.search as search
+    import bark_tpu_torch.strategies.multi_fidelity as tmf
+    from bark_tpu_torch import native
+    from bark_tpu_torch.benchmarks import map_benchmark
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.benchmarks.mf_bo import run_study
+    from bark_tpu_torch.forest import Forest, num_null_trees, route_forest
+    from bark_tpu_torch.models.gp import forest_predict
+    from bark_tpu_torch.models.mogp import (
+        LeafMOGPSurrogate, MOGPParams, mogp_kernel, task_covariance,
+    )
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_from_leaves, gram_plain
+    from bark_tpu_torch.ops.linalg import (
+        JITTER, blocked_cholesky, kernel_matrix, robust_cholesky,
+    )
+    from bark_tpu_torch.optimizer.acquisition import (
+        DEFAULT_KAPPA, build_acquisition, build_acquisition_mogp, evaluate_acquisition,
+    )
+    from bark_tpu_torch.strategies.tree_kernel import make_strategy
+
+    t_phase = time.perf_counter()
+    launches, times = {}, {}
+
+    def zero():
+        gram_cuda.launches = chol_inv_cuda.launches = robust_cholesky.escalations = 0
+
+    def counts():
+        return {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+
+    def timed(fn):
+        """(result, seconds, launches, jitter escalations) of one call."""
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts(), robust_cholesky.escalations
+
+    def clocked(spent, part, fn, keep=None):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                keep[part] = (a, out)
+            return out
+        return run
+
+    def patched(pairs):
+        """Set (module, name, fn) for the duration of a ``with`` block."""
+        stack = contextlib.ExitStack()
+        for mod, name, fn in pairs:
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        return stack
+
+    def time_gram(name, l1, l2, reps):
+        """K1 at a single-forest shape (G = 1): exact against its plain
+        version, then timed; the same tensor twice is the symmetric path."""
+        a = l1[None].contiguous()
+        b = a if l2 is l1 else l2[None].contiguous()
+        require(torch.equal(gram_cuda(a, b), gram_plain(a, b)),
+                f"K1 {name} equals its plain version")
+        t = time_k1(torch, gram_module, a, b, None, None, 64, *reps)
+        require(t["device_ms"] > 0, f"K1 {name}: a device time")
+        times[("gram", name)] = t
+        log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: exact; device "
+            f"{t['device_ms']} ms ({t['kernels_per_call']} kernels a call, {t['device_source']}), "
+            f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+            f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+
+    def time_chol(name, K, reps):
+        """K2 (``blocked_cholesky`` above 256) on one (N, N) matrix, G = 1,
+        against its plain version: |L - L_plain| <= 1e-4 (2e-4 above 200, the
+        reference's bound for its blocked path) and |E L - I| <= 5e-3 (the
+        kernel matrices of fitted hyperparameters are ill-conditioned), then
+        timed."""
+        K = K[None].contiguous()
+        n = K.shape[-1]
+        factor = (lambda: chol_inv_cuda(K)) if n <= MAX_BLOCK else (lambda: blocked_cholesky(K))
+        L, E = factor()
+        Lp, _ = chol_inv_plain(K)
+        err = (L - Lp).abs().max().item()
+        resid = (E @ L - torch.eye(n, device=dev)).abs().max().item()
+        bound = 1e-4 if n <= 200 else 2e-4
+        require(err <= bound and resid <= 5e-3,
+                f"K2 {name}: |L - L_plain| {err} <= {bound}, |E L - I| {resid} <= 5e-3")
+        t = time_k2(torch, factor, lambda: chol_inv_plain(K), 1, n,
+                    "chol_inv_kernel" if n <= MAX_BLOCK else None, *reps)
+        require(t["device_ms"] > 0, f"K2 {name}: a device time")
+        times[("chol_inv", name)] = t
+        log(f"[K2] {name}: |L-L_plain| {err:.3e}, |EL-I| {resid:.3e}; device "
+            f"{t['device_ms']:.5f} ms ({t['kernels_per_call']} kernels a call, "
+            f"{t['device_source']}), call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / "
+            f"{t['library_ms']} device (cuSOLVER); bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
+
+    # ---- (a) LeafGP at full width: fit, predict, acquisition, five iterations
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    tf5 = map_benchmark("TreeFunction", dim=5, m=50, function_seed=1)
+    dom = tf5.domain
+    rng = np.random.default_rng(11)
+    X, C = dom.sample(LEAFGP_N, rng), dom.sample(LEAFGP_POINTS, rng)
+    y, fC = tf5.f(X), tf5.f(C)
+    t0 = time.perf_counter()
+    # the first Adam step of a process sets up the optimizer on the host once
+    leafgp._fit_hypers(torch.eye(8, device=dev), torch.zeros(8, device=dev), steps=2)
+    warm_s = time.perf_counter() - t0
+    sur = leafgp.LeafGPSurrogate(dom)
+    require(sur.device.type == "cuda", "LeafGPSurrogate's default device is the card")
+    spent = {}
+    with patched([(leafgp, "fit_booster_forest",
+                   clocked(spent, "booster", leafgp.fit_booster_forest)),
+                  (leafgp, "_fit_hypers", clocked(spent, "hypers", leafgp._fit_hypers))]):
+        _, fit_s, c, _ = timed(lambda: sur.fit(X, y))
+    launches[f"leafgp fit N={LEAFGP_N}"] = c
+    require(c == {"gram": 1, "chol_inv": 0},
+            f"LeafGP fit: one K1 launch (the Gram) and no K2 (Adam factors through the "
+            f"library), got {c}")
+    model = sur.model
+    require(model.forest.is_leaf.shape == (1, 50, 64) and model.forest.is_leaf.is_cuda
+            and model.noise.is_cuda, "LeafGP: a (1, 50, 64) forest on the card")
+    train_x, train_y = sur.train_data
+    ft = sur._feat_types
+    forest1 = Forest(*(t[0] for t in model.forest))
+    tl = route_forest(forest1, train_x, ft)
+    gram = gram_from_leaves(tl, tl)
+    require(torch.equal(gram, gram_plain(tl, tl)),
+            "LeafGP Gram (1,200,200) equals its plain version")
+    noise, scale = float(model.noise[0]), float(model.scale[0])
+    mll_fit = mll64(torch, gram, train_y, noise, scale)
+    mll_start = mll64(torch, gram, train_y, 0.1, 1.0)
+    require(mll_fit >= mll_start,
+            f"LeafGP: the fitted MLL {mll_fit} is not below Adam's start {mll_start}")
+    log(f"[LeafGP] dim 5, m 50, N={LEAFGP_N} on {smi}: g++ build {build_s:.2f} s, Adam set-up "
+        f"{warm_s:.2f} s; fit {fit_s:.3f} s = booster {spent['booster']:.3f} + hyperparameters "
+        f"{spent['hypers']:.3f} (200 Adam steps) + the rest; launches {c}; noise {noise:.5f}, "
+        f"scale {scale:.5f}; MLL {mll_start:.3f} at Adam's start -> {mll_fit:.3f}")
+    K = kernel_matrix(gram, model.noise[0], model.scale[0])
+    time_chol(f"(1,{LEAFGP_N},{LEAFGP_N}) LeafGP predict and build", K, (25, 10))
+
+    (mu_s, sd_s), pred_s, c, esc = timed(lambda: sur.predict(C))
+    launches["leafgp predict"] = c
+    require(c == {"gram": 2, "chol_inv": 1 + esc},
+            f"LeafGP predict: 2 K1 calls and 1 K2 call (+{esc} escalations), got {c}")
+    Ct = torch.as_tensor(C, device=dev)
+    mu, var = forest_predict(model.forest, model.noise, model.scale, train_x, train_y, Ct, ft)
+    cl = route_forest(forest1, Ct, ft)
+    ones = torch.ones(LEAFGP_N)
+    mu64, var64 = oracle_posterior(torch, tl[None].cpu(), cl[None].cpu(), ones, train_y.cpu(),
+                                   model.noise.cpu(), model.scale.cpu())
+    ok_mu, err_mu = within(torch, mu, mu64, ORACLE_ATOL, ORACLE_RTOL)
+    ok_var, err_var = within(torch, var, var64, ORACLE_ATOL, ORACLE_RTOL)
+    require(ok_mu and ok_var, f"LeafGP predict against the float64 oracle: |mu diff| {err_mu}, "
+                              f"|var diff| {err_var}")
+    mse = float(np.mean((mu_s[:, 0] - fC) ** 2))
+    require(mse < float(np.var(fC)), f"LeafGP held-out MSE {mse} under the mean predictor's "
+                                     f"{np.var(fC)}")
+    acq, acq_build_s, c_b, esc = timed(lambda: build_acquisition(model, train_x, train_y, ft))
+    require(c_b == {"gram": 1, "chol_inv": 1 + esc},
+            f"LeafGP build_acquisition: 1 K1 and 1 K2 call (+{esc}), got {c_b}")
+    batch = torch.as_tensor(dom.sample(ACQ_BATCH, rng), device=dev)
+    lcb, score_s, c_s, _ = timed(lambda: evaluate_acquisition(acq, batch, ft))
+    require(c_s == {"gram": 1, "chol_inv": 0}, f"LeafGP scoring: 1 K1 call, got {c_s}")
+    launches["leafgp acquisition"] = {k: c_b[k] + c_s[k] for k in c_s}
+    cb = route_forest(forest1, batch, ft)
+    mu64b, var64b = oracle_posterior(torch, tl[None].cpu(), cb[None].cpu(), ones, train_y.cpu(),
+                                     model.noise.cpu(), model.scale.cpu(),
+                                     num_null_trees(acq.forest).cpu())
+    lcb64 = (mu64b - DEFAULT_KAPPA * var64b.clamp_min(1e-12).sqrt()).mean(0)
+    ok_lcb, err_lcb = within(torch, lcb, lcb64, ORACLE_ATOL, ORACLE_RTOL)
+    require(ok_lcb, f"LeafGP LCB at B={ACQ_BATCH} against the float64 oracle: {err_lcb}")
+    log(f"[LeafGP] predict at {LEAFGP_POINTS} points {pred_s * 1e3:.1f} ms, launches "
+        f"{launches['leafgp predict']}; against the float64 oracle |mu| {err_mu:.3e}, |var| "
+        f"{err_var:.3e}; held-out MSE {mse:.4f} (mean predictor {np.var(fC):.4f}); "
+        f"build_acquisition {acq_build_s * 1e3:.1f} ms, scoring B={ACQ_BATCH} "
+        f"{score_s * 1e3:.1f} ms, launches {launches['leafgp acquisition']}; LCB against the "
+        f"float64 oracle {err_lcb:.3e}; on {smi}")
+    time_gram(f"(1,{LEAFGP_N},{LEAFGP_N}) LeafGP fit", tl, tl, (25, 10))
+    time_gram(f"(1,{LEAFGP_POINTS},{LEAFGP_N}) LeafGP predict K_xX", cl, tl, (25, 10))
+    time_gram(f"(1,{ACQ_BATCH},{LEAFGP_N}) LeafGP scoring", cb, tl, (10, 3))
+    del acq, batch, cb, cl, mu, var
+
+    s = make_strategy("LeafGP", dom, seed=0, num_candidates=ACQ_BATCH, num_rounds=LEAFGP_ROUNDS)
+    require(s.device.type == "cuda", "make_strategy('LeafGP')'s default device is the card")
+    s.tell(X, y)
+    per_iter, med = full_width_iterations(
+        torch, s, tf5, LEAFGP_ITERATIONS, LEAFGP_ROUNDS, {"gram": 1, "chol_inv": 0},
+        "LeafGP full width", fit_parts=((leafgp, "fit_booster_forest", "booster"),
+                                        (leafgp, "_fit_hypers", "hypers")))
+    launches["leafgp_bo_iteration"] = per_iter
+    log(f"[LeafGP full width] dim 5, m 50, N={LEAFGP_N}-{LEAFGP_N + LEAFGP_ITERATIONS - 1}, "
+        f"{ACQ_BATCH} candidates x {LEAFGP_ROUNDS + 1} batches, medians of "
+        f"{LEAFGP_ITERATIONS} on {smi}: {med['ask_s'] + med['fit_s']:.3f} s per iteration = fit "
+        f"{med['fit_s']:.3f} (booster {med['booster']:.3f}, hyperparameters "
+        f"{med['hypers']:.3f}) + build {med['build']:.4f} + score {med['score']:.4f} + "
+        f"centring {med['centre']:.4f} + other "
+        f"{med['ask_s'] - med['build'] - med['score'] - med['centre']:.4f}")
+
+    # ---- (b) LeafGP in the documented flow
+    bench = map_benchmark("TreeFunction", dim=2, m=10, function_seed=1)
+    lo, hi = bench.domain.bounds("ordinal").T
+    axis = (np.arange(400) + 0.5) / 400
+    grid = np.stack(np.meshgrid(axis, axis), -1).reshape(-1, 2).astype(np.float32)
+    grid_min = float(bench.f(grid).min())
+    for seed in LEAFGP_LOOP_SEEDS:
+        X2 = bench.domain.sample(8, np.random.default_rng(seed))
+        y2 = bench.f(X2)
+        s = make_strategy("LeafGP", bench.domain, seed=seed, num_candidates=1024, num_rounds=3)
+        zero()
+        t0 = time.perf_counter()
+        s.tell(X2, y2)
+        for i in range(LEAFGP_LOOP_ITERATIONS):
+            c2 = s.ask()
+            require(c2.shape == (1, 2) and bool((lo <= c2[0]).all() and (c2[0] <= hi).all()),
+                    f"LeafGP loop seed {seed} iteration {i}: the ask {c2} lies in the domain")
+            s.add(c2, bench.f(c2))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counts()
+        launches[f"leafgp loop seed {seed}"] = c
+        require(s.fallbacks == 0, f"LeafGP loop seed {seed}: no random fallback ({s.fallbacks})")
+        require(c["gram"] > 0 and c["chol_inv"] > 0, f"LeafGP loop seed {seed}: both kernels")
+        held = y2.min() <= grid_min + 1e-6
+        if not held:
+            require(s.y.min() < y2.min(),
+                    f"LeafGP loop seed {seed}: best y {s.y.min()} below the initial {y2.min()}")
+        log(f"[LeafGP loop seed {seed}] {LEAFGP_LOOP_ITERATIONS} iterations in {dt:.2f} s on "
+            f"{smi}: best y {s.y.min():.6f} (initial {y2.min():.6f}, grid minimum "
+            f"{grid_min:.6f}{', held by the initial points' if held else ''}); launches {c}")
+
+    # ---- (c) the multi-fidelity study at the example's defaults
+    records, study_s, c, _ = timed(lambda: run_study(0, MF_ITERATIONS))
+    launches["mf_study"] = c
+    fids = [r["fidelity"] for r in records]
+    costs = [r["cum_cost"] for r in records]
+    bests = [r["best_target"] for r in records]
+    require(len(records) == MF_ITERATIONS and set(fids) <= {0, 1}, f"MF study fidelities {fids}")
+    require(all(b > a for a, b in zip(costs, costs[1:])), f"MF study: the cost grows {costs}")
+    require(all(np.isfinite(bests)) and all(b2 <= b1 for b1, b2 in zip(bests, bests[1:])),
+            f"MF study: the target incumbent never worsens {bests}")
+    # a fit (1), predict at the candidates (2), f* (2), the choice of fidelity
+    # (a predict per fidelity, 2 each, and one joint posterior, 2)
+    require(c == {"gram": 11 * MF_ITERATIONS, "chol_inv": 0},
+            f"MF study: 11 K1 launches an iteration and no K2, got {c}")
+    log(f"[MF study] CurrinExp2D, seed 0, 6 initial points, {MF_ITERATIONS} iterations, 256 "
+        f"candidates, 16 f* in {study_s:.2f} s ({study_s / MF_ITERATIONS:.3f} s each) on {smi}: "
+        f"fidelities {fids}, low-fidelity share {np.mean(np.asarray(fids) != 0):.2f}, total cost "
+        f"{costs[-1]:.2f}, best target {bests[-1]:.6f}; launches {c}")
+
+    # ---- (d) one MultiFidelityStrategy ask at N = 300
+    mf = map_benchmark("CurrinExp2D")
+    mdom = mf.domain
+    Xm = mdom.sample(2 * MF_PER_FIDELITY, np.random.default_rng(5))
+    fidm = np.repeat([0, 1], MF_PER_FIDELITY)
+    ym = mf.f_fidelity(Xm, fidm)
+    s = make_strategy("LeafMOGP", mdom, seed=0, fidelity_costs=list(mf.fidelity_costs))
+    defaults = (s.num_candidates, s.num_rounds, s.num_fstar)
+    require(s.device.type == "cuda" and defaults == (2048, 3, 16),
+            "the multi-fidelity strategy runs on the card at its defaults")
+    _, tell_s, c_fit, _ = timed(lambda: s.tell(Xm, fidm, ym))
+    launches[f"mf fit N={2 * MF_PER_FIDELITY}"] = c_fit
+    require(c_fit == {"gram": 1, "chol_inv": 0}, f"MOGP fit: one K1 launch, got {c_fit}")
+    spent, kept = {}, {}
+    rng_before = copy.deepcopy(s._rng)
+    with patched([
+        (tmf, "build_acquisition_mogp", clocked(spent, "build", tmf.build_acquisition_mogp, kept)),
+        (search, "evaluate_acquisition", clocked(spent, "score", search.evaluate_acquisition)),
+        (tmf, "fstar_samples_mogp", clocked(spent, "fstar", tmf.fstar_samples_mogp, kept)),
+        (tmf, "propose_fidelity_information_based",
+         clocked(spent, "fidelity", tmf.propose_fidelity_information_based)),
+    ]):
+        (x, fid), ask_s, c, esc = timed(lambda: s.ask())
+    launches[f"mf ask N={2 * MF_PER_FIDELITY}"] = c
+    want = {"gram": 1 + s.num_rounds + 2 + 6, "chol_inv": 2 * (1 + esc)}
+    require(c == want, f"MF ask at N={2 * MF_PER_FIDELITY}: launches {c}, the code predicts "
+                       f"{want} (K2 through blocked_cholesky: 2 a factorization)")
+    sur_m = s.surrogate
+    Xt_m, tasks_m, y_m, leaves_m, gram_m = sur_m.train
+    params = sur_m.params
+    B = task_covariance(params)
+    noise_t = leafgp._softplus(params.raw_noise)
+    acq = kept["build"][1]
+    cands = torch.as_tensor(mdom.sample(256, np.random.default_rng(6)), device=dev)
+    lcb = evaluate_acquisition(acq, cands, s._feat_types)
+    cand_leaves = route_forest(sur_m.forest, cands, s._feat_types)
+    mu64, cov64 = mogp_oracle(torch, leaves_m, tasks_m, y_m, B, noise_t, cand_leaves,
+                              torch.zeros(256, dtype=torch.int64))
+    lcb64 = mu64 - DEFAULT_KAPPA * torch.diagonal(cov64).clamp_min(1e-12).sqrt()
+    # the state holds K^-1 = E^T E, as the reference's does; with the fitted
+    # noise near 1e-3 K's condition number is near 1e5 and that formula
+    # loses up to ~1e-2 on the LCB in float32 wherever it runs, so the card
+    # is held to the plain versions' own error on the CPU from the same
+    # state (the reference's formula in float32): at most twice it + 1e-3
+    host = LeafMOGPSurrogate(mdom, num_tasks=2, device="cpu")
+    host.forest = sur_m.forest.to("cpu")
+    host.params = MOGPParams(*(p.cpu() for p in params))
+    host.train = tuple(t.cpu() for t in sur_m.train)
+    host.scaler = copy.deepcopy(sur_m.scaler)
+    lcb_host = evaluate_acquisition(build_acquisition_mogp(host), cands.cpu(),
+                                    s._feat_types.cpu())
+    _, err_lcb = within(torch, lcb, lcb64, ORACLE_ATOL, ORACLE_RTOL)
+    _, err_lcb_host = within(torch, lcb_host, lcb64, ORACLE_ATOL, ORACLE_RTOL)
+    require(err_lcb <= 1e-3 + 2.0 * err_lcb_host,
+            f"MOGP target-fidelity LCB against the float64 oracle: {err_lcb} on the card, "
+            f"{err_lcb_host} for the plain versions on the CPU")
+    Xj = mdom.sample(64, np.random.default_rng(7))
+    tj = np.arange(64) % 2
+    mu_j, cov_j = sur_m._posterior_joint(Xj, tj)
+    mu64j, cov64j = mogp_oracle(
+        torch, leaves_m, tasks_m, y_m, B, noise_t,
+        route_forest(sur_m.forest, torch.as_tensor(Xj, device=dev), s._feat_types),
+        torch.as_tensor(tj))
+    ok_mu, err_mu = within(torch, mu_j, mu64j, ORACLE_ATOL, ORACLE_RTOL)
+    ok_cov, err_cov = within(torch, cov_j, cov64j, ORACLE_ATOL, ORACLE_RTOL)
+    require(ok_mu and ok_cov, f"MOGP _posterior_joint against the float64 oracle: |mu| "
+                              f"{err_mu}, |cov| {err_cov}")
+    # the choice of fidelity replayed on the CPU from the same state and numpy seed
+    f_star_card = kept["fstar"][1]
+    f_star_host = tmf.fstar_samples_mogp(host, s.X, s.num_fstar, rng_before)
+    fid_host = tmf.propose_fidelity_information_based(host, x[0], s.fidelity_costs, f_star_host)
+    fid_card_fstar = tmf.propose_fidelity_information_based(host, x[0], s.fidelity_costs,
+                                                            f_star_card)
+    require(fid == fid_host == fid_card_fstar,
+            f"MF ask: fidelity {fid} on the card, {fid_host} in the CPU replay, "
+            f"{fid_card_fstar} on the CPU from the card's f*")
+    lo_m, hi_m = mdom.bounds("ordinal").T
+    require(bool(((lo_m <= x[0]) & (x[0] <= hi_m)).all()), f"MF ask: x {x} in the domain")
+    log(f"[MF ask N={2 * MF_PER_FIDELITY}] CurrinExp2D, 150 points at each fidelity, 2048 "
+        f"candidates x 3 rounds, 16 f* on {smi}: fit {tell_s:.3f} s; ask {ask_s:.3f} s = build "
+        f"{spent['build']:.4f} + score {spent['score']:.4f} + f* {spent['fstar']:.4f} + "
+        f"fidelity choice {spent['fidelity']:.4f} + centring and the rest "
+        f"{ask_s - sum(spent.values()):.4f}; launches {c}; x {x[0]}, fidelity {fid} (CPU replay "
+        f"{fid_host}, |f* card - f* CPU| {np.abs(f_star_card - f_star_host).max():.3e}); LCB "
+        f"against the float64 oracle {err_lcb:.3e} (plain versions on the CPU "
+        f"{err_lcb_host:.3e}), _posterior_joint |mu| {err_mu:.3e}, "
+        f"|cov| {err_cov:.3e}")
+    n_m = 2 * MF_PER_FIDELITY
+    time_gram(f"(1,{n_m},{n_m}) MOGP fit", leaves_m, leaves_m, (25, 10))
+    time_gram(f"(1,{s.num_candidates},{n_m}) MOGP scoring",
+              route_forest(sur_m.forest, torch.as_tensor(mdom.sample(s.num_candidates, rng),
+                                                          device=dev), s._feat_types),
+              leaves_m, (10, 3))
+    K_m = mogp_kernel(gram_m, tasks_m, tasks_m, params) + torch.diag(JITTER + noise_t[tasks_m])
+    time_chol(f"(1,{n_m},{n_m}) MOGP build, blocked_cholesky", K_m, (10, 3))
+    log(f"[phase 11] {time.perf_counter() - t_phase:.1f} s")
     return launches, times
 
 
@@ -1734,6 +2164,11 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 10. the chol oracle, posterior function sampling, the CG predict ----
     path_launches, path_times = phase_oracle_sampling_cg(torch, dev, smi, tf)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 11. the booster forests: LeafGP, LeafMOGP, the multi-fidelity loop ---
+    path_launches, path_times = phase_booster_forests(torch, dev, smi)
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t

@@ -287,3 +287,81 @@ def test_kernel_time_falls_back_to_events_on_the_card(dev, monkeypatch):
     assert source == "events" and per_call == 1 and split == {}
     assert chol_inv_cuda.launches - before == 3 + 20 + 3 * 20
     assert 0.5 * call <= ms <= 1.1 * call, (ms, call)
+
+
+@pytest.mark.parametrize("n,mcols", [(24, 24), (200, 200), (300, 300), (1024, 200),
+                                     (4096, 200), (2048, 300), (300, 1)])
+def test_gram_single_forest_shapes(dev, n, mcols):
+    """K1 at the single-forest shapes of LeafGP and LeafMOGP: unbatched
+    (N, m) leaves, G = 1, the same tensor twice on the symmetric path (the
+    fits' Grams) and candidates against training leaves (predict, scoring):
+    exact, one launch."""
+    rng = np.random.default_rng(n + mcols)
+    l1 = _leaves(dev, _leaf_ids(rng, (1, n, 50), 64), "contiguous")[0]
+    l2 = l1 if n == mcols else _leaves(dev, _leaf_ids(rng, (1, mcols, 50), 64),
+                                       "contiguous")[0]
+    before = gram_cuda.launches
+    got = gram_from_leaves(l1, l2, node_limit=64)
+    torch.cuda.synchronize()
+    assert gram_cuda.launches == before + 1
+    assert gram.launch_plan(1, n, mcols, 50, 64, l1 is l2).jobs > 0
+    assert got.shape == (n, mcols) and torch.equal(got, gram_plain(l1, l2))
+
+
+@pytest.mark.parametrize("n,launches", [(24, 1), (200, 1), (256, 1), (300, 2)])
+def test_robust_chol_inv_logdet_single_matrix(dev, n, launches):
+    """K2 as the LeafGP and MOGP builds call it: one unbatched (N, N)
+    kernel matrix, G = 1; one launch up to 256, two through
+    ``blocked_cholesky`` at 300; K^-1 within 1e-3 of the plain version's
+    largest entry."""
+    K = torch.as_tensor(_spd(np.random.default_rng(n), 1, n, rank=24)[0], device=dev)
+    before = chol_inv_cuda.launches
+    K_inv, logdet = robust_chol_inv_logdet(K)
+    torch.cuda.synchronize()
+    assert chol_inv_cuda.launches == before + launches
+    Lp, Ep = chol_inv_plain(K[None])
+    want = (Ep.transpose(1, 2) @ Ep)[0]
+    assert K_inv.shape == (n, n)
+    assert (K_inv - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    want_logdet = 2.0 * torch.log(torch.diagonal(Lp[0])).sum()
+    torch.testing.assert_close(logdet, want_logdet, rtol=1e-4, atol=1e-3)
+
+
+def test_leafgp_and_mogp_on_the_card_agree_with_the_cpu(dev):
+    """The booster surrogates on the card and on the CPU from the same data:
+    the same forests; LeafGP's hyperparameters within 2e-3 relative and its
+    predictions within 1e-3 + 1e-3 |value|. LeafMOGP's 300 Adam steps carry
+    float32 round-off far along the flat directions of its MLL (its
+    parameters part by percents between the card and the CPU), so its fit
+    is held to climbing from Adam's start, and its predictions to 1e-3 +
+    1e-3 |value| from one set of parameters on both devices."""
+    from bark_tpu_torch.benchmarks import map_benchmark
+    from bark_tpu_torch.models.leafgp import LeafGPSurrogate
+    from bark_tpu_torch.models.mogp import LeafMOGPSurrogate, MOGPParams, _mogp_mll
+
+    bench = map_benchmark("TreeFunction", dim=3, m=10, function_seed=2)
+    X = bench.domain.sample(60, np.random.default_rng(0))
+    C = bench.domain.sample(100, np.random.default_rng(1))
+    y = bench.f(X)
+    card = LeafGPSurrogate(bench.domain, num_boost_round=20).fit(X, y)
+    host = LeafGPSurrogate(bench.domain, num_boost_round=20, device="cpu").fit(X, y)
+    assert card.device.type == "cuda"
+    for a, b in zip(card.model.forest, host.model.forest):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(card.model.noise.cpu(), host.model.noise, rtol=2e-3, atol=0)
+    torch.testing.assert_close(card.model.scale.cpu(), host.model.scale, rtol=2e-3, atol=0)
+    for a, b in zip(card.predict(C), host.predict(C)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+    fid = np.arange(60) % 2
+    card = LeafMOGPSurrogate(bench.domain, num_boost_round=20).fit(X, fid, y)
+    host = LeafMOGPSurrogate(bench.domain, num_boost_round=20, device="cpu").fit(X, fid, y)
+    for a, b in zip(card.forest, host.forest):
+        assert torch.equal(a.cpu(), b)
+    _, tasks, y_std, _, gram = card.train
+    start = MOGPParams(torch.ones(2, device=dev), torch.zeros(2, device=dev),
+                       torch.full((2,), -1.5, device=dev))
+    assert _mogp_mll(card.params, gram, tasks, y_std) >= _mogp_mll(start, gram, tasks, y_std)
+    host.params = MOGPParams(*(p.cpu() for p in card.params))
+    tasks = np.arange(100) % 2
+    for a, b in zip(card.predict(C, tasks), host.predict(C, tasks)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)

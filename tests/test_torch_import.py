@@ -37,6 +37,10 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.parallel.smc, bark_tpu_torch.benchmarks.ab_tempered\n"
         "import bark_tpu_torch.models.sampling, bark_tpu_torch.ops.iterative\n"
         "import bark_tpu_torch.benchmarks.stationary\n"
+        "import bark_tpu_torch.native, bark_tpu_torch.fitting.booster\n"
+        "import bark_tpu_torch.models.leafgp, bark_tpu_torch.models.mogp\n"
+        "import bark_tpu_torch.optimizer.fidelity, bark_tpu_torch.strategies.multi_fidelity\n"
+        "import bark_tpu_torch.benchmarks.multi_fidelity, bark_tpu_torch.benchmarks.mf_bo\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -132,6 +136,39 @@ def test_bo_script_runs_on_the_port_without_jax():
         "for i in range(3):\n"
         "    c = s.ask(1); s.add(c, bench.f(c))\n"
         "assert len(s.y) == 11 and s.fallbacks == 0 and np.isfinite(s.y).all()\n"
+        "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_booster_surrogates_run_on_the_port_without_jax():
+    """LeafGP's BO loop and one iteration of the multi-fidelity study on the
+    CPU with JAX unavailable; without ``device`` and without a card the
+    study raises."""
+    proc = _run(
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from bark_tpu_torch.benchmarks import map_benchmark\n"
+        "from bark_tpu_torch.benchmarks.mf_bo import run_study\n"
+        "from bark_tpu_torch.strategies.tree_kernel import make_strategy\n"
+        "bench = map_benchmark('TreeFunction', dim=2, m=10, function_seed=1)\n"
+        "X = bench.domain.sample(10, np.random.default_rng(0))\n"
+        "s = make_strategy('LeafGP', bench.domain, num_candidates=128, num_rounds=1,\n"
+        "                  num_boost_round=8, device='cpu')\n"
+        "s.tell(X, bench.f(X))\n"
+        "for i in range(2):\n"
+        "    c = s.ask(); s.add(c, bench.f(c))\n"
+        "rec = run_study(0, 1, num_candidates=32, num_fstar=4,\n"
+        "                surrogate_kwargs={'num_boost_round': 8}, device='cpu')\n"
+        "assert len(s.y) == 12 and s.fallbacks == 0 and rec[0]['fidelity'] in (0, 1)\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        run_study(0, 1)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e)\n"
+        "    else:\n"
+        "        raise SystemExit('no device asked for, no card, and no error')\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )

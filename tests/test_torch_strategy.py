@@ -317,11 +317,20 @@ def test_ask_before_data_and_random_strategy():
 
 
 def test_make_strategy_names_and_device():
+    from bark_tpu_torch.models.leafgp import LeafGPSurrogate
+    from bark_tpu_torch.strategies.multi_fidelity import MultiFidelityStrategy
+
     _, td = domains()
-    for name in ("LeafGP", "LeafMOGP", "BART", "BARTGrid", "GridUCB",
+    for name in ("BART", "BARTGrid", "GridUCB",
                  "RelaxedSobo", "Sobo", "RelaxedGP", "SMAC", "Entmoot"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             tk.make_strategy(name, td, device="cpu")
+    leaf = tk.make_strategy("LeafGP", td, seed=1, node_limit=32, device="cpu")
+    assert isinstance(leaf, tk.TreeKernelStrategy) and isinstance(leaf.surrogate, LeafGPSurrogate)
+    assert leaf.device == torch.device("cpu") and leaf.surrogate.node_limit == 32
+    mf = tk.make_strategy("LeafMOGP", td, seed=1, fidelity_costs=[1.0, 0.5], device="cpu")
+    assert isinstance(mf, MultiFidelityStrategy) and mf.device == torch.device("cpu")
+    assert mf.num_tasks == 2 and mf.surrogate.num_tasks == 2
     prior = tk.make_strategy("BARKPrior", td, seed=2, device="cpu")
     assert isinstance(prior.surrogate, tk.BARKPriorSurrogate)
     assert prior.device == torch.device("cpu") and prior.surrogate.num_samples == 5
@@ -339,7 +348,7 @@ def test_make_strategy_names_and_device():
 
 def test_map_benchmark_knows_the_tree_function():
     bench = map_benchmark("TreeFunction", dim=2, m=10, function_seed=1)
-    assert bench.domain.dim == 2 and set(BENCHMARK_MAP) == {"TreeFunction"}
+    assert bench.domain.dim == 2 and set(BENCHMARK_MAP) == {"TreeFunction", "CurrinExp2D"}
     X = bench.domain.sample(4, np.random.default_rng(0))
     assert bench.f(X).shape == (4,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
