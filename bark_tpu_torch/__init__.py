@@ -1,13 +1,16 @@
-"""PyTorch / CUDA port of BARK: the forest-MCMC sampler and the BO loop on it.
+"""PyTorch / CUDA port of BARK: the forest-MCMC sampler, the BO loop on it and
+its baselines.
 
 A second package beside :mod:`bark_tpu` (the JAX reference, which it never
 imports). Module names mirror the reference so each counterpart is easy to
 find: ``forest``, ``domain``, ``constraints``, ``fitting.{params,bits,
 traversal,proposals,noise_scale,sampler}``, ``ops.linalg``,
 ``models.{gp,surrogate}``, ``optimizer.{acquisition,search}``,
-``strategies.{capabilities,tree_kernel}``, ``utils.{build,diagnostics}`` and
-``benchmarks`` (``map_benchmark``, ``tree_function``); ``convert`` turns
-reference objects into the port's.
+``strategies.{capabilities,tree_kernel,baselines}``,
+``utils.{build,diagnostics,metrics,timer}``, ``fitting.bart`` /
+``models.bart`` and ``benchmarks`` (``map_benchmark``, the objectives, the
+``study`` and ``regression`` runners); ``convert`` turns reference objects
+into the port's.
 
 State is batched by construction: every sampler tensor carries a leading
 chain dimension where the reference ``vmap``-ed over chains, every
@@ -40,5 +43,7 @@ The package covers
     candidate search with leaf-box centering and constraints, and
     ``TreeKernelStrategy`` / ``make_strategy``. These entry points take numpy
     arrays and a ``device`` (None = the CUDA device; the CPU only when asked
-    for).
+    for);
+  - the baselines: native BART, grid UCB, the relaxed GP, the booster-forest
+    surrogates, and the BO-study and regression runners.
 """

@@ -1,24 +1,20 @@
 """Benchmark objectives of the port, by registry name.
 
-Counterpart of ``bark_tpu/benchmarks/__init__.py`` with the benchmarks
-ported so far: ``map_benchmark("TreeFunction", ...)`` and the two-fidelity
-``map_benchmark("CurrinExp2D")``.
+Counterpart of ``bark_tpu/benchmarks/__init__.py``: importing this package
+registers every ported benchmark with :func:`map_benchmark`. The reference's
+names that wait for a later slice (``base.NOT_PORTED``) raise
+``NotImplementedError``.
 """
 
-from bark_tpu_torch.benchmarks.multi_fidelity import CurrinExp2D
-from bark_tpu_torch.benchmarks.tree_function import TreeFunction
+from bark_tpu_torch.benchmarks.base import BENCHMARK_MAP, Benchmark, map_benchmark
 
-BENCHMARK_MAP: dict[str, type] = {"TreeFunction": TreeFunction, "CurrinExp2D": CurrinExp2D}
+# importing registers each benchmark
+from bark_tpu_torch.benchmarks import constrained as _constrained  # noqa: F401
+from bark_tpu_torch.benchmarks import hartmann as _hartmann  # noqa: F401
+from bark_tpu_torch.benchmarks import mixed as _mixed  # noqa: F401
+from bark_tpu_torch.benchmarks import multi_fidelity as _multi_fidelity  # noqa: F401
+from bark_tpu_torch.benchmarks import pest as _pest  # noqa: F401
+from bark_tpu_torch.benchmarks import tree_function as _tree_function  # noqa: F401
+from bark_tpu_torch.benchmarks import unconstrained as _unconstrained  # noqa: F401
 
-
-def map_benchmark(name: str, **kwargs):
-    """Instantiate a registered benchmark by name."""
-    if name not in BENCHMARK_MAP:
-        raise NotImplementedError(
-            f"benchmark {name!r} is not ported yet (ROADMAP.md queue 1 item 10); "
-            f"the port has {sorted(BENCHMARK_MAP)}"
-        )
-    return BENCHMARK_MAP[name](**kwargs)
-
-
-__all__ = ["BENCHMARK_MAP", "map_benchmark"]
+__all__ = ["BENCHMARK_MAP", "Benchmark", "map_benchmark"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from bark_tpu_torch.benchmarks.base import register_benchmark
 from bark_tpu_torch.domain import ContinuousInput, Domain
 
 
@@ -21,11 +22,11 @@ def _currin(x0, x1):
     return -prod1 * prod2 / 10
 
 
+@register_benchmark("CurrinExp2D")
 class CurrinExp2D:
     """Two-fidelity Currin exponential (minimization): fidelity 0 is the
     ground truth, fidelity 1 the local average, at a quarter of the cost."""
 
-    name = "CurrinExp2D"
     num_fidelities = 2
     fidelity_costs = (1.0, 0.25)
 

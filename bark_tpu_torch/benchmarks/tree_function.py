@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bark_tpu_torch.benchmarks.base import register_benchmark
 from bark_tpu_torch.domain import CategoricalInput, ContinuousInput, Domain
 from bark_tpu_torch.forest import Forest, forest_from_numpy, route_forest
 from bark_tpu_torch.utils.build import build_tree_arrays
@@ -51,10 +52,9 @@ def sample_tree_structure_from_prior(
     return forest_from_numpy(stacked)
 
 
+@register_benchmark("TreeFunction")
 class TreeFunction:
     """f(x) = sum_j leaf_value_j(x) for a prior-sampled forest."""
-
-    name = "TreeFunction"
 
     def __init__(self, dim=5, cat_dim=0, num_cat=5, m=50, function_seed=1):
         categories = tuple(chr(i + ord("a")) for i in range(num_cat))

@@ -20,6 +20,7 @@ import torch
 
 from bark_tpu_torch import constraints as port_constraints
 from bark_tpu_torch import domain as port_domain
+from bark_tpu_torch.fitting.bart import BARTParams, BARTSamples, BARTState
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.sampler import BARKModel, ChainState, KernState
 from bark_tpu_torch.forest import FOREST_FIELDS, Forest, forest_from_numpy
@@ -208,6 +209,32 @@ def acquisition_state_from_reference(state, device=None):
     if "beta" in rest:
         return AcquisitionStateLR(forest=forest, **rest)
     return AcquisitionStateTS(forest=forest, **rest)
+
+
+def bart_params_from_reference(params) -> BARTParams:
+    """A ``bark_tpu`` BARTParams (or any dataclass with its fields)."""
+    return BARTParams(**dataclasses.asdict(params))
+
+
+def bart_state_from_reference(state, device=None) -> BARTState:
+    """A reference BARTState of ``run_bart_sampler`` (chains leading)."""
+    f32, i32 = torch.float32, torch.int32
+    return BARTState(
+        packed=_tensor(_get(state, "packed"), i32, device),
+        leaf_values=_tensor(_get(state, "leaf_values"), f32, device),
+        leaves=_tensor(_get(state, "leaves"), i32, device),
+        f_total=_tensor(_get(state, "f_total"), f32, device),
+        sigma2=_tensor(_get(state, "sigma2"), f32, device),
+    )
+
+
+def bart_samples_from_reference(samples, device=None) -> BARTSamples:
+    """Reference BARTSamples, (num_chains, num_samples) leading."""
+    return BARTSamples(
+        packed=_tensor(_get(samples, "packed"), torch.int32, device),
+        leaf_values=_tensor(_get(samples, "leaf_values"), torch.float32, device),
+        sigma2=_tensor(_get(samples, "sigma2"), torch.float32, device),
+    )
 
 
 def to_numpy(obj):

@@ -181,6 +181,12 @@ class Domain:
         return X
 
 
+def build_integer_input(*, key: str, bounds: tuple[int, int], unit=None) -> IntegerInput:
+    """An IntegerInput over an inclusive range (``unit`` is not used)."""
+    del unit
+    return IntegerInput(key=key, bounds=(int(bounds[0]), int(bounds[1])))
+
+
 @dataclass
 class Standardize:
     """Train-time y standardization with exact inverse for mu/var (float64

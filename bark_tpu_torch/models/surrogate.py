@@ -64,6 +64,16 @@ def bucket_size(n: int, bucket: int = 32) -> int:
     return max(bucket, ((n + bucket - 1) // bucket) * bucket)
 
 
+def normals_for(eps, shape: tuple[int, ...]) -> np.ndarray:
+    """Standard normals of ``shape``: ``eps`` itself if it is an array, drawn
+    from it if it is a numpy Generator, from ``default_rng(0)`` if None."""
+    if eps is None:
+        eps = np.random.default_rng(0)
+    if isinstance(eps, np.random.Generator):
+        return eps.standard_normal(shape)
+    return np.asarray(eps)
+
+
 class _BARKSurrogateBase:
     #: padded training-set size past which ``predict`` switches from the
     #: dense posterior (S x N x N kernels) to the exact leaf-space path
@@ -124,21 +134,17 @@ class _BARKSurrogateBase:
             mu, var = mixture_of_gaussians_as_normal(mu, var)
         return mu[..., None], np.sqrt(var[..., None])
 
-    def function_samples(
-        self, X, eps: np.ndarray | None = None, num_draws: int = 1
-    ) -> np.ndarray:
+    def function_samples(self, X, eps=None, num_draws: int = 1) -> np.ndarray:
         """Posterior-predictive function draws at ``X``: ``(S*num_draws, N)``.
 
         One independent marginal Gaussian draw per posterior sample per
         point, in original (un-standardized) y units, observation noise
-        included. ``eps`` holds the standard normals, ``(num_draws, S, N)``;
-        None draws them from a numpy generator seeded with 0.
+        included. ``eps`` holds the standard normals, ``(num_draws, S, N)``,
+        or is a numpy Generator to draw them from (None: ``default_rng(0)``).
         """
         mu, std = self.predict(X, batched=True, predict_observed=True)
         mu, std = mu[..., 0], std[..., 0]  # (S, N)
-        if eps is None:
-            eps = np.random.default_rng(0).standard_normal((num_draws,) + mu.shape)
-        draws = mu[None] + std[None] * np.asarray(eps)
+        draws = mu[None] + std[None] * normals_for(eps, (num_draws,) + mu.shape)
         return draws.reshape(-1, mu.shape[-1])
 
     def _store_train_data(self, X, y):

@@ -34,6 +34,7 @@ from bark_tpu_torch.domain import (
     IntegerInput,
 )
 from bark_tpu_torch.fitting.params import SamplerParams
+from bark_tpu_torch.models.bart import BARTSurrogate
 from bark_tpu_torch.models.leafgp import LeafGPSurrogate
 from bark_tpu_torch.models.surrogate import (
     BARKPriorSurrogate,
@@ -54,23 +55,15 @@ from bark_tpu_torch.optimizer.search import (
     propose,
     sample_feasible,
 )
+from bark_tpu_torch.strategies.baselines import (
+    EntmootStrategy,
+    GridUCBStrategy,
+    RelaxedGPStrategy,
+    smac_strategy,
+)
 from bark_tpu_torch.strategies.capabilities import validate_domain
 
 logger = logging.getLogger(__name__)
-
-#: strategy names of the reference that the port does not have yet, with the
-#: ROADMAP.md queue 1 item that brings each
-_NOT_PORTED = {
-    "BART": "item 10 (fitting/bart.py and models/bart.py)",
-    "BARTGrid": "item 10 (fitting/bart.py and models/bart.py)",
-    "GridUCB": "item 10 (strategies/baselines.py)",
-    "RelaxedSobo": "item 10 (strategies/baselines.py)",
-    "Sobo": "item 10 (strategies/baselines.py)",
-    "RelaxedGP": "item 10 (strategies/baselines.py)",
-    "SMAC": "item 10 (strategies/baselines.py)",
-    "Entmoot": "item 10 (strategies/baselines.py)",
-}
-
 
 class TreeKernelStrategy:
     """The BO loop: alternate surrogate MCMC fits with acquisition search."""
@@ -284,17 +277,25 @@ class RandomStrategy:
 
 
 def make_strategy(name: str, domain: Domain, seed: int = 0, device=None, **kwargs):
-    """Strategy registry: ``"BARK"`` / ``"TreeKernel"``, ``"BARKPrior"`` (the
-    BO loop on :class:`BARKPriorSurrogate`), ``"LeafGP"`` (the BO loop on a
-    :class:`~bark_tpu_torch.models.leafgp.LeafGPSurrogate`; its
-    ``num_boost_round``, ``max_depth`` and ``node_limit`` go to the
-    surrogate), ``"LeafMOGP"`` (the
-    :class:`~bark_tpu_torch.strategies.multi_fidelity.MultiFidelityStrategy`,
-    which takes ``fidelity_costs``) and ``"Random"``.
+    """Strategy registry, the reference's names:
 
-    ``device`` goes to the surrogate (None = the CUDA device); the random
-    baseline touches no device. The reference's other names raise
-    ``NotImplementedError`` until their modules are ported.
+      - ``"BARK"`` / ``"TreeKernel"``, ``"BARKPrior"`` (the BO loop on
+        :class:`BARKPriorSurrogate`), ``"LeafGP"`` (the BO loop on a
+        :class:`~bark_tpu_torch.models.leafgp.LeafGPSurrogate`; its
+        ``num_boost_round``, ``max_depth`` and ``node_limit`` go to the
+        surrogate), ``"LeafMOGP"`` (the
+        :class:`~bark_tpu_torch.strategies.multi_fidelity.MultiFidelityStrategy`,
+        which takes ``fidelity_costs``);
+      - ``"BART"`` / ``"BARTGrid"`` (grid UCB over a
+        :class:`~bark_tpu_torch.models.bart.BARTSurrogate`, which takes
+        ``bart_params``), ``"GridUCB"`` (grid UCB over BARK),
+        ``"RelaxedSobo"`` / ``"Sobo"`` / ``"RelaxedGP"``, ``"SMAC"`` and
+        ``"Entmoot"`` (these two raise ``RuntimeError`` without their
+        packages), from :mod:`bark_tpu_torch.strategies.baselines`;
+      - ``"Random"``.
+
+    ``device`` goes to the surrogate (None = the CUDA device); the random,
+    SMAC and Entmoot baselines touch no device.
     """
     if name in ("BARK", "TreeKernel"):
         return TreeKernelStrategy(domain, seed=seed, device=device, **kwargs)
@@ -314,8 +315,17 @@ def make_strategy(name: str, domain: Domain, seed: int = 0, device=None, **kwarg
         return MultiFidelityStrategy(domain, seed=seed, device=device, **kwargs)
     if name == "Random":
         return RandomStrategy(domain, seed=seed)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet: ROADMAP.md queue 1 {_NOT_PORTED[name]}"
+    if name in ("BART", "BARTGrid"):
+        sur = kwargs.pop("surrogate", None) or BARTSurrogate(
+            domain, kwargs.pop("bart_params", None), seed=seed, device=device
         )
+        return GridUCBStrategy(domain, surrogate=sur, seed=seed, **kwargs)
+    if name == "GridUCB":
+        return GridUCBStrategy(domain, seed=seed, device=device, **kwargs)
+    if name in ("RelaxedSobo", "Sobo", "RelaxedGP"):
+        return RelaxedGPStrategy(domain, seed=seed, device=device, **kwargs)
+    if name == "SMAC":
+        return smac_strategy(domain, **kwargs)
+    if name == "Entmoot":
+        return EntmootStrategy(domain, **kwargs)
     raise KeyError(f"Unknown strategy: {name}")

@@ -177,7 +177,33 @@ in both of its tiers, in phases:
      on the CPU, the fidelity equal to a CPU replay from the same state and
      numpy seed. K1 and K2 timed at the single-forest shapes.
 
-The whole run takes nine to eleven minutes of command time on an H100 (the sampler's
+ 12. BART, the baselines and the study runners (no new kernel): (a) BART at
+     the published defaults (50 trees, 100 warmup + 50 sample sweeps) on
+     TreeFunction(dim=5, m=50, seed=1): two cold ``BARTSurrogate.fit`` at
+     N=200 from one seed (equal samples and states), a warm refit at N=201,
+     ``predict`` at 1024 held-out points (MSE under the mean predictor's),
+     ``run_bart_sampler`` with 4 chains at N=4096, then five sweeps from one
+     set of ``BARTDraws`` on the card and replayed on the CPU, deciding alike
+     up to reported near-ties; cached leaves equal a fresh routing, f_total
+     the sum of leaf values (1e-5 relative), finite sigma2, a tree accept
+     rate in (0, 1), and no K1 or K2 launch. (b) ``run_regression`` on
+     ``regression_treefunction.yaml``'s settings (3 of its 5 runs) for BART
+     and BARK: MSE under the mean predictor's. (c) ``run_study`` on the
+     example configurations (``EXAMPLE_CONFIGS``) at their ``num_init``:
+     TreeFunction dim 5 with BART (10 iterations), StyblinskiTang dim 5 with
+     RelaxedGP (20),
+     PestControl with BARTGrid (5), G6 and PressureVessel with BARK at
+     ``model_bark.yaml`` (3 each) and StyblinskiTang with GridUCB over BARK
+     (3; GridUCB refuses the constrained PressureVessel, as the reference's
+     does): the reference's CSV columns, every ask in the domain, the best y
+     never rising, no fallback. (d) one ``GridUCBStrategy.ask`` over BARK at
+     full width (4 chains x 8 samples, 50 observations, the 16,384-point
+     Sobol grid): 2 K1 and 1 K2 launches, the argmax equal to a CPU replay
+     from the same posterior and normals (or within 1e-5 of the card's
+     maximum), K1 at (32,16384,64) and (32,64,64) symmetric exact and K2 at
+     (32,64,64) within phase 4's bound, each timed.
+
+The whole run takes eleven to fourteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
@@ -188,7 +214,8 @@ N=200", "tempered_bo", "chol N=50/200/512", "leaf_function_samples",
 "generate_fstar_samples", "nystrom", "predict cg N=4096", and the booster
 forests' "leafgp fit N=200", "leafgp predict", "leafgp acquisition",
 "leafgp_bo_iteration", "leafgp loop seed 0/1", "mf_study", "mf fit N=300"
-and "mf ask N=300"), error, times
+and "mf ask N=300", and phase 12's "bart fit N=200", "bart N=4096",
+"regression BART/BARK", "study <benchmark> <model>" and "griducb ask"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -1735,6 +1762,356 @@ def phase_booster_forests(torch, dev, smi):
     return launches, times
 
 
+BART_N, BART_BIG_N, BART_BIG_CHAINS, BART_POINTS, BART_REPLAY = 200, 4096, 4, 1024, 5
+GRID_N, GRID_CHAINS, GRID_SAMPLES, GRID_MAX = 50, 4, 8, 2**14
+REGRESSION_RUNS = 3  # of the configuration's 5: iterations cut to keep phase 12 near 3 min
+STUDIES = (  # (benchmark config, model config, iterations)
+    ("benchmark_treefunction", "model_bart", 10),
+    ("benchmark_styblinskitang", {"model": "RelaxedGP"}, 20),
+    ("benchmark_pestcontrol", {"model": "BARTGrid", "model_params": "model_bart"}, 5),
+    ("benchmark_g6", "model_bark", 3),
+    ("benchmark_pressurevessel", "model_bark", 3),
+    ("benchmark_styblinskitang", {"model": "GridUCB", "model_params": "model_bark"}, 3),
+)
+
+
+def phase_baselines_study(torch, dev, smi):
+    """Phase 12 (see the module docstring). Returns the launches by path and
+    the kernel times at the grid-UCB shapes."""
+    import csv
+    import tempfile
+
+    from bark_tpu_torch.benchmarks import map_benchmark
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.benchmarks.regression import run_regression
+    from bark_tpu_torch.benchmarks.study import EXAMPLE_CONFIGS, build_strategy, run_study
+    from bark_tpu_torch.fitting.bart import (
+        BARTParams, _moved_leaves, _one_hot, bart_step, bart_step_with_info, draw_bart,
+        posterior_gamma_shape, run_bart_sampler,
+    )
+    from bark_tpu_torch.fitting.proposals import ProposalNoise, propose_tree_packed
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.forest import flatten_batch, route_forest, route_tree, unpack_forest
+    from bark_tpu_torch.models.bart import (
+        BARTSurrogate, _invgamma_rate_for_quantile, _MinMaxHalf,
+    )
+    from bark_tpu_torch.models.surrogate import BARKSurrogate
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_from_leaves, gram_plain
+    from bark_tpu_torch.ops.linalg import kernel_matrix, robust_cholesky
+    from bark_tpu_torch.strategies.baselines import GridUCBStrategy, reparam_lcb
+
+    t_phase = time.perf_counter()
+    launches, times = {}, {}
+    cpu = torch.device("cpu")
+    none = {"gram": 0, "chol_inv": 0}
+
+    def zero():
+        gram_cuda.launches = chol_inv_cuda.launches = robust_cholesky.escalations = 0
+
+    def counts():
+        return {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+
+    def timed(fn):
+        """(result, seconds, launches) of one call."""
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    def check_state(tag, state, X, ft, depth):
+        """Cached leaves equal a fresh routing; f_total the sum of the leaf
+        values over trees (1e-5 relative); sigma2 finite."""
+        fresh = route_tree(unpack_forest(state.packed), X, ft, depth)
+        require(torch.equal(fresh, state.leaves), f"{tag}: cached leaves equal a fresh routing")
+        f_sum = torch.gather(state.leaf_values, -1, fresh.long()).sum(-2)
+        err = ((f_sum - state.f_total).abs().max() / f_sum.abs().max()).item()
+        require(err <= 1e-5, f"{tag}: f_total equals the sum of leaf values ({err} relative)")
+        require(bool(torch.isfinite(state.sigma2).all()), f"{tag}: finite sigma2")
+        return err
+
+    # ---- (a) BART at the published defaults ---------------------------------
+    tf = map_benchmark("TreeFunction", dim=5, m=50, function_seed=1)
+    dom = tf.domain
+    rng = np.random.default_rng(12)
+    X, Xt = dom.sample(BART_N + 1, rng), dom.sample(BART_POINTS, rng)
+    y, yt = tf.f(X), tf.f(Xt)
+    params = BARTParams()
+    fits = []
+    for _ in range(2):
+        sur, cold_s, c = timed(lambda: BARTSurrogate(dom, params, seed=1).fit(X[:BART_N],
+                                                                              y[:BART_N]))
+        require(sur.device.type == "cuda", "BARTSurrogate's default device is the card")
+        require(c == none, f"BART fit: no K1 or K2 launch, got {c}")
+        fits.append((sur, cold_s))
+    launches[f"bart fit N={BART_N}"] = c
+    (a, cold_s), (b, cold2_s) = fits
+    require(all(torch.equal(u, v) for u, v in zip(a.samples, b.samples))
+            and all(torch.equal(u, v) for u, v in zip(a._state, b._state)),
+            "BART: two cold fits from one seed are equal (trees, leaf values, sigma2, state)")
+    _, warm_s, c = timed(lambda: a.fit(X, y))
+    require(c == none, f"BART warm refit: no K1 or K2 launch, got {c}")
+    err_a = check_state(f"BART fit N={BART_N + 1}", a._state, a.train_data[0], a._feat_types,
+                        params.max_depth)
+    (mu, std), predict_s, c = timed(lambda: a.predict(Xt))
+    mse, base = float(np.mean((mu[:, 0] - yt) ** 2)), float(np.mean((yt - y.mean()) ** 2))
+    require(np.isfinite(mu).all() and np.isfinite(std).all() and mse < base,
+            f"BART predict: finite, held-out MSE {mse} under the mean predictor's {base}")
+    log(f"[BART] TreeFunction(dim=5, m=50, seed=1), {params.num_trees} trees, "
+        f"{params.warmup_steps} warmup + {params.num_samples} sample sweeps, 1 chain, on {smi}: "
+        f"cold fit at N={BART_N} {cold_s:.2f} s and {cold2_s:.2f} s (equal samples), "
+        f"{cold_s / params.num_steps * 1e3:.1f} ms a sweep; warm refit at N={BART_N + 1} "
+        f"({params.num_samples} sweeps) {warm_s:.2f} s; predict at {BART_POINTS} points "
+        f"{predict_s * 1e3:.1f} ms, MSE {mse:.4f} vs mean predictor {base:.4f}; f_total "
+        f"{err_a:.2e}; sigma2 {a.samples.sigma2[0, -1].item():.5f}")
+
+    X4 = dom.sample(BART_BIG_N, rng)
+    y4 = _MinMaxHalf()(tf.f(X4), train=True)
+    rate = float(np.float32(_invgamma_rate_for_quantile(params.noise_prior_shape,
+                                                        float(np.var(y4)))))
+    params4 = params.with_(num_chains=BART_BIG_CHAINS)
+    X4t = torch.as_tensor(X4, device=dev)
+    y4t = torch.as_tensor(y4, dtype=torch.float32, device=dev)
+    bounds = torch.as_tensor(dom.bounds("bitmask"), device=dev)
+    ft = torch.as_tensor(dom.feature_types(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    (samples4, state4), big_s, c = timed(
+        lambda: run_bart_sampler(gen, X4t, y4t, bounds, ft, params4, rate))
+    launches[f"bart N={BART_BIG_N}"] = c
+    require(c == none, f"BART at N={BART_BIG_N}: no K1 or K2 launch, got {c}")
+    err_b = check_state(f"BART N={BART_BIG_N}", state4, X4t, ft, params.max_depth)
+    # five more sweeps from one set of draws, on the card and replayed on the CPU
+    draws = draw_bart(gen, BART_REPLAY, BART_BIG_CHAINS, params.num_trees, params.node_limit,
+                      posterior_gamma_shape(params4, BART_BIG_N))
+    card, host = state4, state4.to(cpu)
+    infos, infos_c = [], []
+    draws_c = draws.to(cpu)
+    for t in range(BART_REPLAY):
+        card, info = bart_step_with_info(draws.step(t), card, X4t, y4t, bounds, ft, params4,
+                                         rate)
+        host, info_c = bart_step_with_info(draws_c.step(t), host, X4t.cpu(), y4t.cpu(),
+                                           bounds.cpu(), ft.cpu(), params4, rate)
+        infos.append(info)
+        infos_c.append(info_c)
+    parted = {}
+    for t, (i_d, i_c) in enumerate(zip(infos, infos_c)):
+        acc_d, acc_c = i_d.accept.cpu(), i_c.accept
+        for ch in range(BART_BIG_CHAINS):
+            if ch in parted:
+                continue
+            for j in range(params.num_trees):
+                if bool(acc_d[ch, j]) != bool(acc_c[ch, j]):
+                    gap = min(abs(i_d.margin[ch, j].item()), abs(i_c.margin[ch, j].item()))
+                    require(gap < NEAR_TIE, f"BART replay: chain {ch} sweep {t} tree {j} "
+                            f"decides apart away from a tie (|log u - min(log a, 0)| {gap})")
+                    parted[ch] = (t, j, gap)
+                    break
+    for ch in range(BART_BIG_CHAINS):
+        if ch not in parted:
+            require(torch.equal(card.packed[ch].cpu(), host.packed[ch]),
+                    f"BART replay: chain {ch} ends with the CPU's trees")
+    accept = torch.stack([i.accept for i in infos]).float().mean().item()
+    require(0.0 < accept < 1.0, f"BART: tree accept rate {accept} in (0, 1)")
+    log(f"[BART N={BART_BIG_N}] {BART_BIG_CHAINS} chains, {params4.num_steps} sweeps in "
+        f"{big_s:.2f} s ({big_s / params4.num_steps * 1e3:.1f} ms a sweep of {params.num_trees} "
+        f"trees) on {smi}; f_total {err_b:.2e}; tree accept rate {accept:.4f} over "
+        f"{BART_REPLAY} sweeps; replayed on the CPU: {BART_BIG_CHAINS - len(parted)} of "
+        f"{BART_BIG_CHAINS} chains decided every move alike, parted at near-ties {parted}")
+
+    # the split of a sweep: the batched proposals (with the proposed leaves),
+    # the one-hot columns of both branches, and the rest (the 50 visits and
+    # sigma2), medians of 5 synchronised repetitions from one state
+    def clock(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out) * 1e3
+
+    def sweep_split(state, X, y, mask):
+        c, m, node_limit = state.leaf_values.shape
+        d = draws.step(0) if c == BART_BIG_CHAINS else draw_bart(
+            gen, 1, c, m, node_limit, 1.5 + 0.5 * float(mask.sum())).step(0)
+        flat = ProposalNoise(*(t.reshape(c * m, *t.shape[2:]) for t in d.noise))
+
+        def proposals():
+            new, log_q, move, node = propose_tree_packed(
+                state.packed.reshape(c * m, node_limit, 8), bounds, ft,
+                params.proposal_params(), flat)
+            return _moved_leaves(state.leaves, new.reshape(c, m, node_limit, 8),
+                                 node.reshape(c, m), move.reshape(c, m),
+                                 torch.isneginf(log_q.reshape(c, m)), X.t().contiguous(), ft)
+
+        moved = proposals()
+        whole = clock(lambda: bart_step(d, state, X, y, bounds, ft, params, rate, mask))
+        prop = clock(proposals)
+        onehot = clock(lambda: _one_hot(torch.stack([state.leaves, moved], 2), node_limit,
+                                        mask).permute(0, 1, 3, 2, 4).reshape(c, m, -1, 2 * node_limit))
+        return {"sweep": whole, "proposals": prop, "one_hot": onehot,
+                "visits_and_sigma2": whole - prop - onehot}
+
+    split_big = sweep_split(state4, X4t, y4t, None)
+    split_200 = sweep_split(a._state, a.train_data[0], a.train_data[1], a.train_mask)
+    log(f"[BART split] ms a sweep (median of 5) on {smi}: N={BART_BIG_N} x "
+        f"{BART_BIG_CHAINS} chains {json.dumps({k: round(v, 3) for k, v in split_big.items()})}; "
+        f"N={BART_N + 1} (bucket {a.train_data[0].shape[0]}) x 1 chain "
+        f"{json.dumps({k: round(v, 3) for k, v in split_200.items()})}")
+
+    # ---- (b) the regression runner ----------------------------------------
+    out = tempfile.TemporaryDirectory()
+    reg = {**EXAMPLE_CONFIGS["regression_treefunction"], "num_runs": REGRESSION_RUNS}
+    for name in ("model_bart", "model_bark"):
+        summary, reg_s, c = timed(lambda: run_regression(0, reg, EXAMPLE_CONFIGS[name],
+                                                         out.name))
+        launches[f"regression {EXAMPLE_CONFIGS[name]['model']}"] = c
+        require(summary["mse"] < summary["mse_mean"] and np.isfinite(summary["nlpd"]),
+                f"regression {name}: MSE {summary['mse']} under the mean predictor's "
+                f"{summary['mse_mean']}")
+        if name == "model_bart":
+            require(c == none, f"regression BART: no K1 or K2 launch, got {c}")
+        log(f"[regression] {EXAMPLE_CONFIGS[name]['model']} on TreeFunction(dim=5, m=50), "
+            f"{reg['num_train']} train / {reg['num_test']} test, {reg['num_runs']} runs in "
+            f"{reg_s:.1f} s on {smi}: MSE {summary['mse']:.4f} (mean predictor "
+            f"{summary['mse_mean']:.4f}), NLPD {summary['nlpd']:.4f}, fit "
+            f"{summary['fit_s']:.2f} s; launches {c}")
+
+    # ---- (c) the BO studies of the example configurations ---------------------
+    try:
+        build_strategy({"model": "GridUCB"}, map_benchmark("PressureVessel").domain, 0)
+    except ValueError as e:
+        log(f"[study] GridUCB on PressureVessel refused, as the reference's: {e}")
+    else:
+        raise RuntimeError("check failed: GridUCB accepted the constrained PressureVessel")
+    for bench_name, model, iterations in STUDIES:
+        bench_cfg = {**EXAMPLE_CONFIGS[bench_name], "num_iter": iterations}
+        if isinstance(model, str):
+            model = EXAMPLE_CONFIGS[model]
+        elif isinstance(model.get("model_params"), str):
+            model = {**model, "model_params": EXAMPLE_CONFIGS[model["model_params"]]["model_params"]}
+        merged, study_s, c = timed(lambda: run_study(0, bench_cfg, model, out.name))
+        tag = f"{bench_cfg['benchmark']}_{model['model']}_seed=0"
+        launches[f"study {bench_cfg['benchmark']} {model['model']}"] = c
+        bdom = map_benchmark(bench_cfg["benchmark"], **bench_cfg.get("benchmark_params", {})).domain
+        with open(f"{out.name}/experiments_{tag}.csv") as f:
+            rows = list(csv.reader(f))
+        require(rows[0] == [*bdom.input_keys, "y", "best", "viol", "fit_s", "optimize_s"]
+                and len(rows) == iterations + 1, f"study {tag}: the reference's CSV columns")
+        asks = np.array([[float(v) for v in r[:bdom.dim]] for r in rows[1:]], np.float32)
+        lo, hi = bdom.bounds("ordinal").T
+        require(bool(((lo <= asks) & (asks <= hi)).all()) and np.array_equal(bdom.round(asks), asks),
+                f"study {tag}: every ask in the domain")
+        best = np.array([float(r[bdom.dim + 1]) for r in rows[1:]])
+        require(bool((np.diff(best) <= 0).all()) and merged["fallbacks"] == 0,
+                f"study {tag}: the best y never rises; no fallback ({merged['fallbacks']})")
+        if model["model"] in ("BART", "BARTGrid", "RelaxedGP"):
+            require(c == none, f"study {tag}: no K1 or K2 launch, got {c}")
+        else:
+            require(c["gram"] > 0 and c["chol_inv"] > 0, f"study {tag}: both kernels ran, {c}")
+        log(f"[study] {tag}: {iterations} iterations from {bench_cfg['num_init']} points in "
+            f"{study_s:.1f} s ({study_s / iterations:.2f} s each) on {smi}: best y "
+            f"{min(merged['best'], merged['initial_best']):.6g} (initial "
+            f"{merged['initial_best']:.6g}), feasible proposals "
+            f"{merged['feasible_proposal_rate']:.2f}; launches {c}")
+    out.cleanup()
+
+    # ---- (d) one grid-UCB ask over BARK at full width ---------------------------
+    sp = SamplerParams(num_chains=GRID_CHAINS, num_samples=GRID_SAMPLES, steps_per_sample=5,
+                       warmup_steps=50)
+    s = GridUCBStrategy(dom, seed=0, params=sp, max_grid=GRID_MAX)
+    require(s.device.type == "cuda", "GridUCBStrategy's default device is the card")
+    Xg = dom.sample(GRID_N, np.random.default_rng(3))
+    _, tell_s, _ = timed(lambda: s.tell(Xg, tf.f(Xg)))
+    sur = s.surrogate
+    S = GRID_CHAINS * GRID_SAMPLES
+    n_grid = min(2 ** (5 * dom.dim), s.max_grid)
+    eps = np.random.default_rng(4).standard_normal((1, S, n_grid))
+    x, ask_s, c = timed(lambda: s.ask(1, eps=eps))
+    launches["griducb ask"] = c
+    esc = robust_cholesky.escalations
+    require(c == {"gram": 2, "chol_inv": 1 + esc},
+            f"grid-UCB ask: the predict's 2 K1 calls and 1 K2 call (+{esc} escalations), got {c}")
+    grid = dom.sample_sobol(n_grid, seed=s.seed + s._ask_count - 1)
+    lcb = reparam_lcb(sur.function_samples(grid, eps=eps), s.kappa)
+    require(np.array_equal(x[0], grid[int(np.argmax(lcb))]), "grid-UCB ask: the LCB's argmax")
+    host_sur = BARKSurrogate(dom, sp, device="cpu")
+    host_sur.model = type(sur.model)(sur.model.forest.to(cpu), sur.model.noise.cpu(),
+                                     sur.model.scale.cpu())
+    host_sur.train_data = tuple(t.cpu() for t in sur.train_data)
+    host_sur.train_mask = sur.train_mask.cpu()
+    host_sur.scaler = sur.scaler
+    lcb_c = reparam_lcb(host_sur.function_samples(grid, eps=eps), s.kappa)
+    i_d, i_c = int(np.argmax(lcb)), int(np.argmax(lcb_c))
+    gap = abs(lcb[i_d] - lcb[i_c]) / max(abs(lcb[i_d]), 1e-12)
+    require(i_d == i_c or gap < 1e-5, f"grid-UCB ask: argmax {i_d} on the card, {i_c} in the "
+            f"CPU replay, {gap} apart (relative) in the card's LCB")
+    err_lcb = float(np.abs(lcb - lcb_c).max() / np.abs(lcb_c).max())
+    # the split of an ask: the grid (host), predict (the card), the normals
+    # and the LCB (host), medians of 5
+    part = {
+        "grid": clock(lambda: dom.sample_sobol(n_grid, seed=0)),
+        "predict": clock(lambda: sur.predict(grid, batched=True)),
+        "normals": clock(lambda: np.random.default_rng(5).standard_normal((1, S, n_grid))),
+    }
+    mu_g, sd_g = sur.predict(grid, batched=True)
+    part["draws_and_lcb"] = clock(lambda: reparam_lcb(
+        (mu_g[None, ..., 0] + sd_g[None, ..., 0] * eps).reshape(-1, n_grid), s.kappa))
+    log(f"[griducb split] ms of an ask's parts (median of 5) on {smi}: "
+        f"{json.dumps({k: round(v, 3) for k, v in part.items()})}")
+    log(f"[griducb] GridUCB over BARK, dim 5, {GRID_CHAINS} chains x {GRID_SAMPLES} samples, "
+        f"{GRID_N} observations, {n_grid}-point Sobol grid on {smi}: tell (fit) {tell_s:.2f} s; "
+        f"ask {ask_s * 1e3:.1f} ms, launches {c}; argmax {i_d} (CPU replay {i_c}), LCB against "
+        f"the CPU's {err_lcb:.2e} relative")
+    # the kernels at the ask's shapes, each against its plain version
+    train_x, mask = sur.train_data[0], sur.train_mask
+    flat = flatten_batch(sur.model.forest)
+    depth, node_limit = sp.max_depth, sp.node_limit
+    tl = route_forest(flat, train_x, ft, depth).contiguous()
+    gl = route_forest(flat, torch.as_tensor(grid, device=dev), ft, depth).contiguous()
+    K_XX = gram_from_leaves(tl, tl, mask, mask, node_limit)
+    K_xX = gram_from_leaves(gl, tl, None, mask, node_limit)
+    require(torch.equal(K_XX, gram_plain(tl, tl, mask, mask))
+            and torch.equal(K_xX, gram_plain(gl, tl, None, mask)),
+            f"grid-UCB K1 {tuple(K_XX.shape)} and {tuple(K_xX.shape)} equal their plain versions")
+    K = kernel_matrix(K_XX, sur.model.noise.reshape(-1), sur.model.scale.reshape(-1))
+    L, E = chol_inv_cuda(K)
+    Lp, _ = chol_inv_plain(K)
+    n_pad = K.shape[-1]
+    err_l = (L - Lp).abs().max().item()
+    resid = (E @ L - torch.eye(n_pad, device=dev)).abs().max().item()
+    require(err_l <= 1e-4 and resid <= 5e-4,
+            f"grid-UCB K2 ({S},{n_pad},{n_pad}): |L - L_plain| {err_l} <= 1e-4, |E L - I| "
+            f"{resid} <= 5e-4")
+    for name, args, reps in (
+        (f"({S},{n_pad},{n_pad}) griducb K_XX", (tl, tl, mask, mask), (25, 10)),
+        (f"({S},{n_grid},{n_pad}) griducb K_xX", (gl, tl, None, mask), (5, 2)),
+    ):
+        t = time_k1(torch, gram_module, *args, node_limit, *reps)
+        require(t["device_ms"] > 0, f"K1 {name}: a device time")
+        times[("gram", name)] = t
+        log(f"[K1] {name}{' symmetric' if t['symmetric'] else ''}: exact; device "
+            f"{t['device_ms']} ms ({t['kernels_per_call']} kernels a call, {t['device_source']}), "
+            f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+            f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+    t = time_k2(torch, lambda: chol_inv_cuda(K), lambda: chol_inv_plain(K), S, n_pad,
+                "chol_inv_kernel")
+    require(t["device_ms"] > 0, "K2 at the grid-UCB shape: a device time")
+    times[("chol_inv", f"({S},{n_pad},{n_pad}) griducb")] = t
+    log(f"[K2] ({S},{n_pad},{n_pad}) griducb: |L-L_plain| {err_l:.3e}, |EL-I| {resid:.3e}; "
+        f"device {t['device_ms']:.5f} ms ({t['device_source']}), call {t['call_ms']:.5f}, plain "
+        f"{t['plain_ms']:.5f} call / {t['library_ms']} device (cuSOLVER); bound "
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, "
+        f"on {smi}")
+    log(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -2169,6 +2546,11 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 11. the booster forests: LeafGP, LeafMOGP, the multi-fidelity loop ---
     path_launches, path_times = phase_booster_forests(torch, dev, smi)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 12. BART, the baselines, the study and regression runners ------------
+    path_launches, path_times = phase_baselines_study(torch, dev, smi)
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t

@@ -365,3 +365,74 @@ def test_leafgp_and_mogp_on_the_card_agree_with_the_cpu(dev):
     tasks = np.arange(100) % 2
     for a, b in zip(card.predict(C, tasks), host.predict(C, tasks)):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_bart_two_runs_from_one_seed_are_equal_on_the_card(dev):
+    """The residual sums are fixed-order products (no float atomics), so two
+    runs from one generator seed give equal trees, leaf values and sigma2."""
+    from bark_tpu_torch.fitting.bart import BARTParams, run_bart_sampler
+
+    rng = np.random.default_rng(6)
+    X = torch.as_tensor(rng.uniform(size=(300, 3)).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.sin(6 * rng.uniform(size=300)).astype(np.float32) * 0.4, device=dev)
+    bounds = torch.tensor([[0.0, 1.0]] * 3, device=dev)
+    ft = torch.full((3,), 2, dtype=torch.int32, device=dev)
+    params = BARTParams(warmup_steps=20, num_samples=5, num_chains=3, num_trees=20)
+    before = (gram_cuda.launches, chol_inv_cuda.launches)
+    runs = [run_bart_sampler(torch.Generator(device=dev).manual_seed(1), X, y, bounds, ft,
+                             params, 0.01) for _ in range(2)]
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+    assert (gram_cuda.launches, chol_inv_cuda.launches) == before  # BART runs neither
+
+
+@pytest.mark.parametrize("s,n,mcols", [(32, 16384, 64), (32, 64, 64)])
+def test_gram_grid_ucb_shapes(dev, s, n, mcols):
+    """K1 at the grid-UCB ask's predict shapes: K_xX over the 16,384-point
+    grid and K_XX (symmetric), masked columns, exact."""
+    rng = np.random.default_rng(n)
+    l2 = _leaves(dev, _leaf_ids(rng, (s, mcols, 50), 64), "contiguous")
+    l1 = l2 if n == mcols else _leaves(dev, _leaf_ids(rng, (s, n, 50), 64), "contiguous")
+    mask = torch.as_tensor((np.arange(mcols) < 50).astype(np.float32), device=dev)
+    m1 = mask if l1 is l2 else None
+    assert torch.equal(gram_cuda(l1, l2, m1, mask), gram_plain(l1, l2, m1, mask))
+
+
+def test_chol_inv_grid_ucb_shape(dev):
+    a = torch.as_tensor(_spd(np.random.default_rng(2), 32, 64), device=dev)
+    L, E = chol_inv_cuda(a)
+    Lp, _ = chol_inv_plain(a)
+    assert (L - Lp).abs().max().item() <= 1e-4
+    assert (E @ L - torch.eye(64, device=dev)).abs().max().item() <= 5e-4
+
+
+def test_grid_ucb_ask_on_the_card_agrees_with_the_cpu(dev):
+    """One grid-UCB ask over BARK on the card and from the same posterior and
+    normals on the CPU: the same grid point (or one whose LCB on the card is
+    within 1e-5 relative of the card's maximum)."""
+    from bark_tpu_torch.benchmarks import map_benchmark
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.models.surrogate import BARKSurrogate
+    from bark_tpu_torch.strategies.baselines import GridUCBStrategy, reparam_lcb
+
+    bench = map_benchmark("TreeFunction", dim=3, m=20, function_seed=2)
+    params = SamplerParams(num_chains=2, num_samples=4, steps_per_sample=2, warmup_steps=10,
+                           num_trees=20)
+    s = GridUCBStrategy(bench.domain, seed=1, params=params, max_grid=4096)
+    X = bench.domain.sample(40, np.random.default_rng(1))
+    s.tell(X, bench.f(X))
+    eps = np.random.default_rng(2).standard_normal((1, 8, 4096))
+    x = s.ask(1, eps=eps)
+    grid = bench.domain.sample_sobol(4096, seed=1)
+    sur = s.surrogate
+    host = BARKSurrogate(bench.domain, params, device="cpu")
+    host.model = type(sur.model)(sur.model.forest.to("cpu"), sur.model.noise.cpu(),
+                                 sur.model.scale.cpu())
+    host.train_data = tuple(t.cpu() for t in sur.train_data)
+    host.train_mask, host.scaler = sur.train_mask.cpu(), sur.scaler
+    lcb = reparam_lcb(sur.function_samples(grid, eps=eps), s.kappa)
+    lcb_c = reparam_lcb(host.function_samples(grid, eps=eps), s.kappa)
+    np.testing.assert_allclose(lcb, lcb_c, rtol=1e-4, atol=1e-4 * np.abs(lcb_c).max())
+    assert np.array_equal(x[0], grid[int(np.argmax(lcb))])
+    i_c = int(np.argmax(lcb_c))
+    assert abs(lcb.max() - lcb[i_c]) <= 1e-5 * abs(lcb.max())

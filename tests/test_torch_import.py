@@ -41,6 +41,13 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.models.leafgp, bark_tpu_torch.models.mogp\n"
         "import bark_tpu_torch.optimizer.fidelity, bark_tpu_torch.strategies.multi_fidelity\n"
         "import bark_tpu_torch.benchmarks.multi_fidelity, bark_tpu_torch.benchmarks.mf_bo\n"
+        "import bark_tpu_torch.fitting.bart, bark_tpu_torch.models.bart\n"
+        "import bark_tpu_torch.strategies.baselines, bark_tpu_torch.benchmarks.base\n"
+        "import bark_tpu_torch.benchmarks.unconstrained, bark_tpu_torch.benchmarks.constrained\n"
+        "import bark_tpu_torch.benchmarks.mixed, bark_tpu_torch.benchmarks.pest\n"
+        "import bark_tpu_torch.benchmarks.hartmann, bark_tpu_torch.benchmarks.study\n"
+        "import bark_tpu_torch.benchmarks.regression\n"
+        "import bark_tpu_torch.utils.metrics, bark_tpu_torch.utils.timer\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -165,6 +172,36 @@ def test_booster_surrogates_run_on_the_port_without_jax():
         "if not torch.cuda.is_available():\n"
         "    try:\n"
         "        run_study(0, 1)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e)\n"
+        "    else:\n"
+        "        raise SystemExit('no device asked for, no card, and no error')\n"
+        "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_study_runs_on_the_port_without_jax():
+    """The BO-study and regression runners on the CPU with JAX (and PyYAML)
+    unavailable, at a tiny size; without ``device`` and without a card the
+    study raises."""
+    proc = _run(
+        "import sys, tempfile; sys.modules['jax'] = None; sys.modules['yaml'] = None\n"
+        "import torch\n"
+        "from bark_tpu_torch.benchmarks.study import run_study\n"
+        "from bark_tpu_torch.benchmarks.regression import run_regression\n"
+        "out = tempfile.mkdtemp()\n"
+        "bench = {'benchmark': 'TreeFunction', 'benchmark_params': {'dim': 2, 'm': 10},\n"
+        "         'num_init': 5, 'num_iter': 2, 'num_train': 20, 'num_test': 20, 'num_runs': 1}\n"
+        "model = {'model': 'BART', 'model_params': {'warmup_steps': 10, 'num_samples': 4,\n"
+        "                                           'num_trees': 6}}\n"
+        "merged = run_study(0, bench, model, out, device='cpu')\n"
+        "run_regression(0, bench, model, out, device='cpu')\n"
+        "assert merged['feasible_proposal_rate'] == 1.0\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        run_study(0, bench, model, out)\n"
         "    except RuntimeError as e:\n"
         "        assert 'CUDA' in str(e)\n"
         "    else:\n"

@@ -294,20 +294,21 @@ def test_sampling_entry_points_refuse_reduced_matmul_precision(inputs):
 
 @pytest.mark.parametrize("name", ["LeafGP", "LeafMOGP", "BART", "GridUCB", "SMAC", "Entmoot"])
 def test_unported_strategy_names_still_raise(name):
-    """The reference's strategy names raise until their modules are ported;
-    the booster-forest ones (LeafGP, LeafMOGP) are and build."""
+    """Every reference strategy name is ported now: each builds on the CPU,
+    but SMAC and Entmoot, which raise the reference's RuntimeError without
+    their optional packages."""
     from bark_tpu_torch.domain import ContinuousInput, Domain
-    from bark_tpu_torch.strategies.tree_kernel import _NOT_PORTED, make_strategy
+    from bark_tpu_torch.strategies import tree_kernel
+    from bark_tpu_torch.strategies.tree_kernel import make_strategy
 
+    assert not hasattr(tree_kernel, "_NOT_PORTED")
     dom = Domain([ContinuousInput("x", (0.0, 1.0))])
-    if name in ("LeafGP", "LeafMOGP"):
-        assert name not in _NOT_PORTED
-        kwargs = {"fidelity_costs": [1.0, 0.5]} if name == "LeafMOGP" else {}
-        assert make_strategy(name, dom, device="cpu", **kwargs).device == torch.device("cpu")
+    if name in ("SMAC", "Entmoot"):
+        with pytest.raises(RuntimeError, match=f"{name}Strategy requires"):
+            make_strategy(name, dom, device="cpu")
         return
-    assert name in _NOT_PORTED
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_strategy(name, dom, device="cpu")
+    kwargs = {"fidelity_costs": [1.0, 0.5]} if name == "LeafMOGP" else {}
+    assert make_strategy(name, dom, device="cpu", **kwargs).device == torch.device("cpu")
 
 
 if __name__ == "__main__":
