@@ -4,12 +4,14 @@ Counterpart of ``bark_tpu/benchmarks/base.py``: each benchmark provides
 ``.domain`` and ``.f(X)``, where ``f`` takes ordinal-encoded points ``(N, D)``
 (the encoding the surrogates train on; dict input goes through
 ``Domain.transform``) and returns ``(N,)`` outputs. Registered names resolve
-through :func:`map_benchmark`; a name of the reference's registry that the
-port does not have yet raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+through :func:`map_benchmark`, which covers every name of the reference's
+registry. Benchmarks that train a model per evaluation import sklearn,
+pandas or xgboost when they are built, through :func:`require_package`.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -17,9 +19,14 @@ from bark_tpu_torch.domain import Domain
 
 BENCHMARK_MAP: dict[str, type] = {}
 
-#: names of the reference's registry still to be ported (ROADMAP.md queue 1)
-NOT_PORTED = ("CCOBench", "DatasetBenchmark", "MAXBandit", "SVRBench", "ToyReaction",
-              "XGBoostMNIST")
+
+def require_package(module: str, what: str):
+    """Import ``module`` or raise naming its package, where it is not
+    installed: nothing switches to another objective quietly."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise RuntimeError(f"{what} needs {module.split('.')[0]}, which is not installed") from e
 
 
 def register_benchmark(name: str):
@@ -33,11 +40,6 @@ def register_benchmark(name: str):
 
 def map_benchmark(name: str, **kwargs):
     """Instantiate a registered benchmark by name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"benchmark {name!r} is not ported yet (ROADMAP.md queue 1); the port "
-            f"has {sorted(BENCHMARK_MAP)}"
-        )
     return BENCHMARK_MAP[name](**kwargs)
 
 

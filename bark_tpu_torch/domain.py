@@ -87,6 +87,10 @@ class Domain:
     def input_keys(self) -> list[str]:
         return [f.key for f in self.inputs]
 
+    @property
+    def output_keys(self) -> list[str]:
+        return [f.key for f in self.outputs]
+
     def cat_indices(self) -> list[int]:
         """Indices of the categorical features."""
         return [i for i, f in enumerate(self.inputs) if isinstance(f, CategoricalInput)]

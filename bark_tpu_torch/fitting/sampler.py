@@ -50,7 +50,7 @@ of (state, draws) -- the seam the parity tests use to replay the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -905,11 +905,13 @@ def run_chain(
     feat_types: torch.Tensor,
     params: SamplerParams,
     mask: torch.Tensor | None = None,
+    draws: Sequence[StepDraws] | None = None,
 ) -> ChainRun:
     """Run C chains from ``model`` (fields with leading dim C): warmup, then
     ``num_samples`` samples thinned by ``steps_per_sample``.
 
-    Draws come from ``generator`` (on the data's device for speed).
+    Draws come from ``generator`` (on the data's device for speed), or step
+    t takes ``draws[t]``.
     """
     state = init_chain_state(
         model.forest, model.noise, model.scale, X, y, feat_types, params, mask,
@@ -922,9 +924,12 @@ def run_chain(
 
     def advance(state):
         nonlocal tree_acc, hyper_acc, n_steps
-        draws = draw_step(generator, c, params, X.device)
+        step_draws = (
+            draw_step(generator, c, params, X.device) if draws is None
+            else draws[n_steps].to(X.device)
+        )
         state, info = step_with_info(
-            state, X, y, bounds, feat_types, params, draws, mask
+            state, X, y, bounds, feat_types, params, step_draws, mask
         )
         tree_acc = tree_acc + info.tree_accepts.sum(1)
         hyper_acc = hyper_acc + info.hyper_accept

@@ -25,7 +25,7 @@ from bark_tpu_torch.forest import (
     gram_from_leaves,
     route_forest,
 )
-from bark_tpu_torch.ops.iterative import cg_posterior
+from bark_tpu_torch.ops.iterative import cg_posterior, shard_posterior_inputs
 from bark_tpu_torch.ops.linalg import (
     JITTER,
     blocked_cholesky,
@@ -85,23 +85,31 @@ def forest_predict_cg(
     max_depth: int = 16,
     train_mask: torch.Tensor | None = None,
     maxiter: int = 256,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Matrix-free sibling of :func:`forest_predict`: the same (mu, var) per
     posterior sample, every kernel product factored through the packed leaf
     indicator and both solves by preconditioned CG over all S samples at
     once (``ops.iterative.cg_posterior``); nothing N x N is built. No K1 or
     K2 launch: the products are matmuls, as in the reference, where they
-    are not Pallas kernels either.
+    are not Pallas kernels either. With ``mesh`` (every rank calling with
+    the same arguments) each rank routes and solves over its block of the
+    training rows, and the result is alike on every rank.
     """
     check_matmul_precision()
     flat = flatten_batch(forest)
     noise = noise.reshape(-1).to(torch.float32)
     scale = scale.reshape(-1).to(torch.float32)
+    train_y = train_y.to(torch.float32)
+    if mesh is not None:
+        if train_mask is None:
+            train_mask = torch.ones(train_x.shape[0], device=train_x.device)
+        train_x, train_y, train_mask = shard_posterior_inputs(mesh, train_x, train_y, train_mask)
     train_leaves = route_forest(flat, train_x, feat_types, max_depth)
     cand_leaves = route_forest(flat, candidates, feat_types, max_depth)
     return cg_posterior(
-        train_leaves, cand_leaves, train_y.to(torch.float32), noise, scale,
-        flat.node_limit, mask=train_mask, maxiter=maxiter,
+        train_leaves, cand_leaves, train_y, noise, scale,
+        flat.node_limit, mask=train_mask, maxiter=maxiter, mesh=mesh,
     )
 
 

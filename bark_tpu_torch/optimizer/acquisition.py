@@ -23,6 +23,10 @@ batch, for thousands of candidates at once. Three states:
   - multi-task (:func:`build_acquisition_mogp`): the target-fidelity LCB of
     a fitted LeafMOGP, one forest.
 
+:func:`evaluate_acquisition_sharded` splits a candidate batch over the ranks
+of a mesh: each scores its block against the replicated state, and one
+gather returns the whole batch's scores to every rank.
+
 The reference ``vmap``-s one posterior sample; here every tensor carries the
 leading dimension S = chains x samples. The Thompson build's randomness
 (which sample, the normal vector) comes in as arguments
@@ -53,6 +57,7 @@ from bark_tpu_torch.ops.linalg import (
     robust_chol_inv_logdet,
     robust_cholesky,
 )
+from bark_tpu_torch.parallel.distributed import all_gather, mesh_rank
 
 DEFAULT_KAPPA = 1.96
 
@@ -458,3 +463,25 @@ def evaluate_acquisition(
     if isinstance(acq, AcquisitionState):
         return _evaluate_acquisition_dense(acq, candidates, feat_types, max_depth, kappa)
     raise TypeError(f"not an acquisition state: {type(acq).__name__}")
+
+
+def evaluate_acquisition_sharded(
+    acq,
+    candidates: torch.Tensor,
+    feat_types: torch.Tensor,
+    mesh,
+    max_depth: int = 16,
+    kappa: float = DEFAULT_KAPPA,
+) -> torch.Tensor:
+    """:func:`evaluate_acquisition` with the (B, D) batch split over the
+    ranks of ``mesh`` (B must divide by their number): each rank scores its
+    block of rows against its copy of the state, and the scores are gathered
+    in rank order, (B,) on every rank."""
+    rank, size = mesh_rank(mesh)
+    if candidates.shape[0] % size:
+        raise ValueError(
+            f"candidate batch of {candidates.shape[0]} does not divide over {size} ranks"
+        )
+    local = candidates.shape[0] // size
+    block = candidates[rank * local:(rank + 1) * local]
+    return all_gather(evaluate_acquisition(acq, block, feat_types, max_depth, kappa), mesh)

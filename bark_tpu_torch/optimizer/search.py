@@ -51,7 +51,11 @@ from bark_tpu_torch.constraints import is_feasible, total_violation
 from bark_tpu_torch.domain import CategoricalInput, Domain, IntegerInput
 from bark_tpu_torch.fitting.traversal import node_subspace
 from bark_tpu_torch.forest import FEAT_CAT, FEAT_INT, route_forest
-from bark_tpu_torch.optimizer.acquisition import DEFAULT_KAPPA, evaluate_acquisition
+from bark_tpu_torch.optimizer.acquisition import (
+    DEFAULT_KAPPA,
+    evaluate_acquisition,
+    evaluate_acquisition_sharded,
+)
 
 
 class AcquisitionFailure(RuntimeError):
@@ -530,6 +534,7 @@ def propose(
     rng: np.random.Generator | None = None,
     constraints=None,
     seeds: np.ndarray | None = None,
+    mesh=None,
 ) -> tuple[np.ndarray, float]:
     """Optimize the acquisition; returns (proposal ordinal point, acq value).
 
@@ -538,7 +543,10 @@ def propose(
     penalty during the search and exactly at the centering step. ``seeds``
     (K, D) replace the first K candidates of round 0 (the incumbent, the
     previous proposal). Raises :class:`AcquisitionFailure` when every score
-    of a batch is non-finite.
+    of a batch is non-finite. With ``mesh`` (every rank calling with the
+    same arguments) each batch is scored by
+    :func:`evaluate_acquisition_sharded` and every rank proposes the same
+    point.
     """
     rng = rng or np.random.default_rng()
     constraints = domain.constraints if constraints is None else constraints
@@ -553,7 +561,10 @@ def propose(
         cands[:k] = torch.as_tensor(np.asarray(seeds[:k], np.float32), device=device)
 
     def score(batch):
-        scores = evaluate_acquisition(acq, batch, feat_types, max_depth, kappa)
+        if mesh is None:
+            scores = evaluate_acquisition(acq, batch, feat_types, max_depth, kappa)
+        else:
+            scores = evaluate_acquisition_sharded(acq, batch, feat_types, mesh, max_depth, kappa)
         finite = torch.isfinite(scores)
         if not bool(finite.any()):
             raise AcquisitionFailure(

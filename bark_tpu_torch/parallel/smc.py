@@ -19,6 +19,12 @@ At beta = 1 the weighted population is a posterior sample and the
 log-evidence estimates the marginal likelihood. Everything runs in float32,
 as the reference does. A round is a pure function of its draws
 (:class:`SMCDraws`, :func:`smc_round`), so a test can replay the reference.
+
+:func:`run_smc_sharded` splits the particles over the ranks of a mesh. Each
+round gathers the (P,) MLLs, so that every rank takes the same beta, weights
+and resample decision; the particle states are gathered only in a round that
+resamples. Every rank draws the whole round from a generator seeded alike
+and keeps its rows, so a sharded run takes :func:`run_smc`'s draws.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+from torch.utils import _pytree as pytree
 
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior, sample_noise_prior
@@ -39,6 +46,7 @@ from bark_tpu_torch.fitting.sampler import (
     step_with_info,
 )
 from bark_tpu_torch.ops.linalg import check_matmul_precision
+from bark_tpu_torch.parallel.distributed import all_gather, all_gather_tree, mesh_rank
 
 
 class SMCResult(NamedTuple):
@@ -57,6 +65,24 @@ class SMCDraws(NamedTuple):
 
     def to(self, device) -> "SMCDraws":
         return SMCDraws(self.u_resample.to(device), tuple(s.to(device) for s in self.steps))
+
+
+def _prior_particles(generator, num_particles, bounds, feat_types, params,
+                     rows: slice = slice(None)) -> BARKModel:
+    """Particles ``rows`` of ``num_particles`` drawn from the BARK prior:
+    forests by :func:`sample_forest_prior`, noise from its Gamma prior,
+    scale 1 (every row's draws are made, the forests only for ``rows``)."""
+    prior = draw_prior(
+        generator, num_particles, params.num_trees, params.node_limit,
+        params.gamma_prior_shape, bounds.device,
+    )
+    prior = pytree.tree_map(lambda t: t[rows], prior)
+    forest = sample_forest_prior(
+        prior, params.num_trees, bounds, feat_types, params.alpha, params.beta,
+        params.node_limit, params.max_depth,
+    )
+    noise = sample_noise_prior(prior.gamma, params.gamma_prior_rate)
+    return BARKModel(forest, noise, torch.ones_like(noise))
 
 
 class SMCRound(NamedTuple):
@@ -197,18 +223,7 @@ def run_smc(
     check_matmul_precision()
     dev = X.device
     if particles is None:
-        prior = draw_prior(
-            generator, num_particles, params.num_trees, params.node_limit,
-            params.gamma_prior_shape, dev,
-        )
-        forest = sample_forest_prior(
-            prior, params.num_trees, bounds, feat_types, params.alpha, params.beta,
-            params.node_limit, params.max_depth,
-        )
-        particles = BARKModel(
-            forest, sample_noise_prior(prior.gamma, params.gamma_prior_rate),
-            torch.ones(num_particles, device=dev),
-        )
+        particles = _prior_particles(generator, num_particles, bounds, feat_types, params)
     chains = init_chain_state(
         particles.forest, particles.noise, particles.scale, X, y, feat_types, params, mask,
         bounds,
@@ -233,6 +248,89 @@ def run_smc(
     return SMCResult(
         model=BARKModel(chains.forest, chains.noise, chains.scale),
         log_weights=shifted - torch.log(torch.exp(shifted).sum()),
+        log_evidence=log_evidence,
+        betas=torch.stack(betas),
+        ess_trace=torch.stack(ess),
+    )
+
+
+def run_smc_sharded(
+    generator: torch.Generator,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    params: SamplerParams,
+    mesh,
+    num_particles: int = 64,
+    num_rounds: int = 16,
+    mutation_steps: int = 2,
+    target_ess: float = 0.6,
+    resample_threshold: float = 0.5,
+    mask: torch.Tensor | None = None,
+    particles: BARKModel | None = None,
+    draws: Sequence[SMCDraws] | None = None,
+) -> SMCResult:
+    """:func:`run_smc` with the particles split over the ranks of ``mesh``.
+
+    Rank r holds particles ``[r P/n, (r + 1) P/n)`` (``num_particles`` must
+    divide by the number of ranks n). ``generator`` must be seeded alike on
+    every rank: each rank draws what :func:`run_smc` would draw from it (the
+    whole prior population, the whole round) and keeps its rows, or takes
+    its rows of ``particles`` and ``draws[t]``. Each round gathers the (P,)
+    MLLs; the log-weights, beta, the log-evidence and the resample decision
+    are then computed alike on every rank, and a resample gathers the
+    particle states (all fields, the kernel carry included) and takes this
+    rank's ancestors. Returns this rank's particles and their log-weights
+    (normalised over all P), and the log-evidence, betas and ESS trace,
+    equal on every rank.
+    """
+    check_matmul_precision()
+    rank, size = mesh_rank(mesh)
+    if num_particles % size:
+        raise ValueError(f"{num_particles} particles do not divide over {size} ranks")
+    local = num_particles // size
+    mine = slice(rank * local, (rank + 1) * local)
+    dev = X.device
+    if particles is None:
+        particles = _prior_particles(generator, num_particles, bounds, feat_types, params, mine)
+    else:
+        particles = pytree.tree_map(lambda t: t[mine], particles)
+    chains = init_chain_state(
+        particles.forest, particles.noise, particles.scale, X, y, feat_types, params, mask,
+        bounds,
+    )
+    beta = torch.zeros((), device=dev)
+    log_w = torch.zeros(num_particles, device=dev)  # every rank holds all P
+    log_evidence = torch.zeros((), device=dev)
+    betas, ess = [], []
+    for t in range(num_rounds):
+        round_draws = (
+            draw_smc_round(generator, num_particles, mutation_steps, params, dev)
+            if draws is None else draws[t].to(dev)
+        )
+        mll = all_gather(chains.mll, mesh)
+        new_beta = _next_beta(beta, mll, target_ess)
+        inc = (new_beta - beta) * mll
+        log_evidence = log_evidence + _logsumexp_weighted(inc, _softmax(log_w))
+        log_w = log_w + inc
+        if bool(_ess(log_w) < resample_threshold * num_particles):
+            ancestors = systematic_resample(round_draws.u_resample, log_w)
+            chains = all_gather_tree(chains, mesh).take(ancestors[mine])
+            log_w = torch.zeros_like(log_w)
+        beta_rows = new_beta.expand(local)
+        for step_draws in round_draws.steps:
+            step_draws = pytree.tree_map(lambda d: d[mine], step_draws)
+            chains, _ = step_with_info(
+                chains, X, y, bounds, feat_types, params, step_draws, mask, beta=beta_rows
+            )
+        beta = new_beta
+        betas.append(beta)
+        ess.append(_ess(log_w))
+    shifted = log_w - log_w.max()
+    return SMCResult(
+        model=BARKModel(chains.forest, chains.noise, chains.scale),
+        log_weights=(shifted - torch.log(torch.exp(shifted).sum()))[mine],
         log_evidence=log_evidence,
         betas=torch.stack(betas),
         ess_trace=torch.stack(ess),

@@ -16,7 +16,12 @@ one swap per ladder. A round is a pure function of its draws
 
 :func:`pt_swap_states` is the fixed-position swap of the reference's
 sharded sampler (temperatures stay with positions, accepted pairs exchange
-their states), kept as the single-device oracle of that scheme.
+their states), the single-device oracle of :func:`sharded_pt_swap` and
+:func:`run_parallel_tempering_sharded`: one replica per rank of a mesh,
+rank r always at beta_r, deterministic even-odd phases. A pair exchanges its
+(beta, MLL) scalars and, when it swaps, its whole chain states by
+``batch_isend_irecv`` (the reference's ``ppermute``); both partners decide
+by the uniform of the left position, so no accept bit travels.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from bark_tpu_torch.fitting.sampler import (
 )
 from bark_tpu_torch.forest import Forest
 from bark_tpu_torch.ops.linalg import check_matmul_precision
+from bark_tpu_torch.parallel.distributed import all_reduce, exchange_tree, mesh_rank
+from bark_tpu_torch.parallel.sharding import rank_generator
 
 
 class PTState(NamedTuple):
@@ -233,3 +240,129 @@ def run_parallel_tempering(
         return PTRun(model, beta_trace[:, 0], swap_rate[0], cold_mlls[0], state)
     return PTRun(model, beta_trace, swap_rate, cold_mlls, state)
 
+
+
+# --- one replica per rank: the fixed-position (DEO) ladder over a mesh -------
+
+
+class ShardedPTDraws(NamedTuple):
+    """The randomness of one round on one rank."""
+
+    step: StepDraws  # this rank's replica, one row
+    u_even: torch.Tensor  # (R,) uniforms by left position, equal on every rank
+    u_odd: torch.Tensor  # (R,)
+
+    def to(self, device) -> "ShardedPTDraws":
+        return ShardedPTDraws(self.step.to(device), self.u_even.to(device), self.u_odd.to(device))
+
+
+def draw_sharded_pt_round(
+    step_generator: torch.Generator,
+    swap_generator: torch.Generator,
+    num_replicas: int,
+    params: SamplerParams,
+    device=None,
+) -> ShardedPTDraws:
+    """One round's draws: the step's from this rank's generator, both
+    phases' uniforms from the generator every rank shares."""
+    step = draw_step(step_generator, 1, params)
+    u = torch.rand((2, num_replicas), generator=swap_generator, device=swap_generator.device)
+    draws = ShardedPTDraws(step, u[0], u[1])
+    return draws if device is None else draws.to(device)
+
+
+def sharded_pt_swap(u: torch.Tensor, chains, beta: torch.Tensor, mll: torch.Tensor,
+                    parity: int, mesh):
+    """One even-odd swap phase with one replica per rank of ``mesh``.
+
+    Positions (parity, parity + 1), (parity + 2, ...) pair up; a rank
+    exchanges (beta, mll) with its partner and decides by ``u[left]`` (u is
+    (R,), by left position, equal on every rank), which gives both partners
+    the same decision; on a swap the partners exchange ``chains`` (any
+    pytree of tensors, None fields kept). An unpaired edge rank keeps its
+    state. Bit-equal to :func:`pt_swap_states` from the same uniforms.
+    Returns (chains, accept), accept shaped like ``mll``.
+    """
+    i, r = mesh_rank(mesh)
+    partner = i + 1 if (i - int(parity)) % 2 == 0 else i - 1
+    if not 0 <= partner < r:
+        return chains, torch.zeros_like(mll, dtype=torch.bool)
+    nbr_beta, nbr_mll = exchange_tree((beta, mll), partner, mesh)
+    delta = (beta - nbr_beta) * (nbr_mll - mll)
+    accept = torch.log(u[min(i, partner)]) <= torch.clamp_max(delta, 0.0)
+    if bool(accept.all()):
+        chains = exchange_tree(chains, partner, mesh)
+    return chains, accept
+
+
+class ShardedPTRun(NamedTuple):
+    """What :func:`run_parallel_tempering_sharded` returns on one rank; on
+    rank 0 (beta = 1) the trace is the cold chain's."""
+
+    samples: BARKModel  # this rank's state after each round, (T,) leading
+    mll: torch.Tensor  # (T,) this rank's MLL after each round
+    swap_rate: torch.Tensor  # (T,) share of the R - 1 pairs that swapped, per round
+    beta: torch.Tensor  # () this rank's inverse temperature
+    state: ChainState  # this rank's final state, one row
+
+
+def run_parallel_tempering_sharded(
+    seed: int,
+    forest: Forest,
+    noise: torch.Tensor,
+    scale: torch.Tensor,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    params: SamplerParams,
+    mesh,
+    num_steps: int = 100,
+    beta_min: float = 0.05,
+    mask: torch.Tensor | None = None,
+    draws: Sequence[ShardedPTDraws] | None = None,
+) -> ShardedPTRun:
+    """PT with one replica per rank: rank r holds beta_r of the geometric
+    ladder for the whole run, and states move between ranks.
+
+    ``forest``/``noise``/``scale`` are this rank's replica, with a leading
+    dim of 1 (``sharding.shard_model`` of an (R,)-batched model). A round is
+    one tempered step, then an even and an odd :func:`sharded_pt_swap`
+    phase. Each rank keeps its own trace; no state is reduced across ranks,
+    and the only collective besides the pairs' exchanges is one
+    ``all_reduce`` of the (T,) accept counts at the end. Round t's draws
+    come from :func:`draw_sharded_pt_round` with this rank's generator
+    (:func:`~bark_tpu_torch.parallel.sharding.rank_generator`) and one
+    seeded by ``seed`` on every rank, or from ``draws[t]``.
+    """
+    check_matmul_precision()
+    i, r = mesh_rank(mesh)
+    if forest.batch_shape != (1,):
+        raise ValueError(f"one replica per rank, got a forest of batch {forest.batch_shape}")
+    dev = X.device
+    beta = geometric_ladder(r, beta_min, dev)[i]
+    state = init_chain_state(forest, noise, scale, X, y, feat_types, params, mask, bounds)
+    step_gen = rank_generator(seed, i, dev)
+    swap_gen = torch.Generator(device=dev).manual_seed(seed)
+    trace, mlls, accepts = [], [], []
+    for t in range(num_steps):
+        round_draws = (
+            draw_sharded_pt_round(step_gen, swap_gen, r, params, dev) if draws is None
+            else draws[t].to(dev)
+        )
+        state, _ = step_with_info(
+            state, X, y, bounds, feat_types, params, round_draws.step, mask, beta=beta
+        )
+        state, acc_e = sharded_pt_swap(round_draws.u_even, state, beta, state.mll, 0, mesh)
+        state, acc_o = sharded_pt_swap(round_draws.u_odd, state, beta, state.mll, 1, mesh)
+        trace.append((state.forest, state.noise, state.scale))
+        mlls.append(state.mll)
+        accepts.append((acc_e.to(torch.float32) + acc_o.to(torch.float32)).sum())
+    # each swap sets the accept bit on both partners: R - 1 pairs over the
+    # two phases count twice
+    swap_rate = all_reduce(torch.stack(accepts), mesh) / (2.0 * max(r - 1, 1))
+    forests, noises, scales = zip(*trace)
+    samples = BARKModel(
+        Forest(*(torch.cat(f) for f in zip(*forests))), torch.cat(noises), torch.cat(scales)
+    )
+    return ShardedPTRun(samples, torch.cat(mlls), swap_rate, beta, state)

@@ -48,10 +48,64 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.benchmarks.hartmann, bark_tpu_torch.benchmarks.study\n"
         "import bark_tpu_torch.benchmarks.regression\n"
         "import bark_tpu_torch.utils.metrics, bark_tpu_torch.utils.timer\n"
+        "import bark_tpu_torch.parallel.distributed, bark_tpu_torch.parallel.sharding\n"
+        "import bark_tpu_torch.graft_entry, bark_tpu_torch.utils.checkpoint\n"
+        "import bark_tpu_torch.utils.profiling, bark_tpu_torch.utils.plots\n"
+        "import bark_tpu_torch.benchmarks.cco, bark_tpu_torch.benchmarks.max_bandit\n"
+        "import bark_tpu_torch.benchmarks.reaction_emulator, bark_tpu_torch.benchmarks.svr_bench\n"
+        "import bark_tpu_torch.benchmarks.dataset, bark_tpu_torch.benchmarks.hpo\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_new_benchmarks_run_without_jax_sklearn_pandas_or_matplotlib():
+    """As on the GPU machine: MAXBandit (its JSON shipped in the package),
+    ToyReaction and CCOBench evaluate; SVRBench, XGBoostMNIST and
+    DatasetBenchmark raise naming the package they need; the plots raise
+    naming matplotlib and format_tree still works."""
+    proc = _run(
+        "import sys\n"
+        "for m in ('jax', 'sklearn', 'pandas', 'xgboost', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from bark_tpu_torch.benchmarks import map_benchmark\n"
+        "for name in ('MAXBandit', 'ToyReaction', 'CCOBench'):\n"
+        "    b = map_benchmark(name)\n"
+        "    y = b.f(b.domain.sample(4, np.random.default_rng(0)))\n"
+        "    assert y.shape == (4,) and np.isfinite(y).all(), name\n"
+        "for name, kw, pkg in (('SVRBench', {'num_samples': 400}, 'xgboost'),\n"
+        "                      ('SVRBench', {'num_samples': 400, 'backend': 'sklearn'}, 'sklearn'),\n"
+        "                      ('XGBoostMNIST', {'backend': 'sklearn'}, 'sklearn'),\n"
+        "                      ('DatasetBenchmark', {'dataset_name': 'Abalone'}, 'pandas')):\n"
+        "    try:\n"
+        "        map_benchmark(name, **kw)\n"
+        "    except RuntimeError as e:\n"
+        "        assert pkg in str(e), (name, str(e))\n"
+        "    else:\n"
+        "        raise SystemExit(f'{name} built without {pkg}')\n"
+        "from bark_tpu_torch.forest import create_empty_forest\n"
+        "from bark_tpu_torch.utils import plots\n"
+        "f = create_empty_forest(3, 8)\n"
+        "assert plots.format_tree(f, 0) == 'leaf[0]'\n"
+        "try:\n"
+        "    plots.plot_forest_depths(None, f)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'matplotlib' in str(e)\n"
+        "else:\n"
+        "    raise SystemExit('plotted without matplotlib')\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_max_bandit_data_ships_with_the_package():
+    """The JSON is a byte copy of the reference's and is package data."""
+    port = PORT / "benchmarks" / "data" / "MAX_data.json"
+    ref = REPO / "bark_tpu" / "benchmarks" / "data" / "MAX_data.json"
+    assert port.read_bytes() == ref.read_bytes()
+    assert '"benchmarks/data/*.json"' in (REPO / "pyproject.toml").read_text()
 
 
 def test_no_port_source_imports_jax():

@@ -10,6 +10,8 @@ with ``device="cpu"``.
 
 import dataclasses
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -355,10 +357,12 @@ def test_make_strategy_names_and_device():
     assert tk.make_strategy("BARK", td, device="cpu").device == torch.device("cpu")
 
 
-def test_map_benchmark_knows_the_tree_function():
+def test_map_benchmark_knows_the_tree_function(monkeypatch):
     bench = map_benchmark("TreeFunction", dim=2, m=10, function_seed=1)
     assert bench.domain.dim == 2 and {"TreeFunction", "CurrinExp2D"} <= set(BENCHMARK_MAP)
     X = bench.domain.sample(4, np.random.default_rng(0))
     assert bench.f(X).shape == (4,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every name is ported; one whose package is missing raises naming it
+    monkeypatch.setitem(sys.modules, "xgboost", None)
+    with pytest.raises(RuntimeError, match="xgboost"):
         map_benchmark("XGBoostMNIST")
