@@ -7,7 +7,8 @@ plus ``mse_mean``, the MSE of the training mean, the bar a model must
 clear). Configurations come as dicts (see
 :data:`~bark_tpu_torch.benchmarks.study.EXAMPLE_CONFIGS`).
 
-Usage (reads the YAML files when PyYAML is importable)::
+Usage (``-c``/``-m`` take a name of ``EXAMPLE_CONFIGS`` or, when PyYAML is
+importable, a YAML file)::
 
     python -m bark_tpu_torch.benchmarks.regression -s 0 \
         -c examples/configs/regression_treefunction.yaml \
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from bark_tpu_torch.benchmarks import map_benchmark
-from bark_tpu_torch.benchmarks.study import read_yaml
+from bark_tpu_torch.benchmarks.study import load_config
 from bark_tpu_torch.fitting.bart import BARTParams
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.models.surrogate import BARKPriorSurrogate, BARKSurrogate
@@ -120,8 +121,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None, help="cpu, or the CUDA device if left out")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    return run_regression(args.seed, read_yaml(args.benchmark_config),
-                          read_yaml(args.model_config), args.output, args.device)
+    return run_regression(args.seed, load_config(args.benchmark_config),
+                          load_config(args.model_config), args.output, args.device)
 
 
 if __name__ == "__main__":

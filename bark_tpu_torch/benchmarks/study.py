@@ -8,7 +8,8 @@ written as JSON (``config_<tag>.json``), where the reference writes YAML:
 PyYAML is not a dependency of the port. The configurations come as dicts;
 :data:`EXAMPLE_CONFIGS` holds those of ``examples/configs/*.yaml``.
 
-Usage (reads the YAML files when PyYAML is importable)::
+Usage (``-c``/``-m`` take a name of ``EXAMPLE_CONFIGS`` or, when PyYAML is
+importable, a YAML file)::
 
     python -m bark_tpu_torch.benchmarks.study -s 0 \
         -c examples/configs/benchmark_treefunction.yaml \
@@ -39,7 +40,7 @@ from bark_tpu_torch.utils.timer import BOLogger, Timer
 
 logger = logging.getLogger(__name__)
 
-#: ``examples/configs/*.yaml`` (all but the MCMC example's) as dicts
+#: ``examples/configs/*.yaml`` as dicts
 EXAMPLE_CONFIGS = {
     "benchmark_g6": {"benchmark": "G6", "num_init": 10, "num_iter": 20},
     "benchmark_pestcontrol": {"benchmark": "PestControl", "benchmark_params": {"seed": 0},
@@ -52,6 +53,11 @@ EXAMPLE_CONFIGS = {
     "benchmark_treefunction": {"benchmark": "TreeFunction",
                                "benchmark_params": {"dim": 5, "m": 50}, "num_init": 10,
                                "num_iter": 20},
+    "mcmc_benchmark": {"benchmark": "TreeFunction", "benchmark_params": {"dim": 5, "m": 50},
+                       "num_train": 50},
+    "mcmc_model": {"model": "BARK", "model_params": {
+        "warmup_steps": 0, "num_samples": 500, "steps_per_sample": 1, "num_chains": 4,
+        "num_trees": 50}},
     "model_bark": {"model": "BARK", "model_params": {
         "warmup_steps": 50, "num_samples": 5, "steps_per_sample": 10, "num_chains": 1,
         "num_trees": 50}},
@@ -162,6 +168,14 @@ def read_yaml(path: Path) -> dict:
         return yaml.safe_load(f)
 
 
+def load_config(name_or_path) -> dict:
+    """A configuration by its name in :data:`EXAMPLE_CONFIGS`
+    (``"mcmc_model"``), or else read from a YAML file."""
+    if str(name_or_path) in EXAMPLE_CONFIGS:
+        return EXAMPLE_CONFIGS[str(name_or_path)]
+    return read_yaml(Path(name_or_path))
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-s", "--seed", type=int, default=0)
@@ -172,8 +186,8 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
-    return run_study(args.seed, read_yaml(args.benchmark_config),
-                     read_yaml(args.model_config), args.output, args.device)
+    return run_study(args.seed, load_config(args.benchmark_config),
+                     load_config(args.model_config), args.output, args.device)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,11 @@ def half_normal_logpdf(x: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.where(x >= 0, log_normal, -torch.inf)
 
 
+def gamma_logpdf(x: torch.Tensor, shape: float, rate: float) -> torch.Tensor:
+    """Gamma log density with shape ``shape`` and rate ``rate``."""
+    return (shape - 1) * torch.log(x) - rate * x - math.lgamma(shape) + shape * math.log(rate)
+
+
 def inverse_gamma_logpdf(x: torch.Tensor, shape: float, rate: float) -> torch.Tensor:
     """Inverse-gamma log density with scale ``1 / rate``."""
     scale = 1.0 / rate

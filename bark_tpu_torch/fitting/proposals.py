@@ -25,7 +25,7 @@ from bark_tpu_torch.fitting.traversal import (
     singly_internal_mask,
     terminal_mask,
 )
-from bark_tpu_torch.forest import FEAT_CAT, FEAT_INT, unpack_forest
+from bark_tpu_torch.forest import FEAT_CAT, FEAT_INT, Forest, pack_forest, unpack_forest
 
 GROW, PRUNE, CHANGE = 0, 1, 2
 
@@ -249,3 +249,31 @@ def propose_tree_packed(
         reject, torch.full_like(w0, -math.inf), log_q_ratio + log_prior_ratio
     )
     return new_packed, log_q_prior, move, n.to(torch.int32)
+
+
+def propose_tree(
+    tree: Forest,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    params: SamplerParams,
+    noise: ProposalNoise,
+    return_move: bool = False,
+):
+    """Forest-typed wrapper of :func:`propose_tree_packed`.
+
+    ``tree`` fields are ``(..., node_limit)`` (one tree, or any batch of
+    them) and ``noise`` fields carry the same leading dims. Returns the
+    proposed trees and ``log_q_prior`` (-inf on rejection); with
+    ``return_move=True`` also the move codes and target nodes.
+    """
+    lead = tree.is_leaf.shape[:-1]
+    flat = lambda t: t.reshape(-1, *t.shape[len(lead):])  # noqa: E731
+    new_packed, log_q_prior, move, node = propose_tree_packed(
+        flat(pack_forest(tree)), bounds, feat_types, params,
+        ProposalNoise(*(flat(t) for t in noise)),
+    )
+    new_tree = Forest(*(t.reshape(*lead, -1) for t in unpack_forest(new_packed)))
+    log_q_prior, move, node = (t.reshape(lead) for t in (log_q_prior, move, node))
+    if return_move:
+        return new_tree, log_q_prior, move, node
+    return new_tree, log_q_prior

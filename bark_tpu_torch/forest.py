@@ -232,6 +232,54 @@ def num_null_trees(forest: Forest) -> torch.Tensor:
     return forest.is_leaf[..., 0].sum(-1, dtype=torch.int32)
 
 
+def forest_gram_matrix(
+    forest: Forest,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = DEFAULT_MAX_DEPTH,
+) -> torch.Tensor:
+    """Agreement Gram between two data sets under a forest, fields
+    ``(..., m, node_limit)`` -> ``(..., N1, N2)``: routing, then the Gram
+    (the kernel on the card). The same ``x1`` and ``x2`` tensor is routed
+    once and takes the kernel's symmetric path."""
+    l1 = route_forest(forest, x1, feat_types, max_depth)
+    l2 = l1 if x2 is x1 else route_forest(forest, x2, feat_types, max_depth)
+    return gram_from_leaves(l1, l2, node_limit=forest.node_limit)
+
+
+def batched_forest_gram_matrix(
+    forest: Forest,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = DEFAULT_MAX_DEPTH,
+) -> torch.Tensor:
+    """Gram matrices for a batch of forests, fields ``(B, m, node_limit)``
+    -> ``(B, N1, N2)``, in one kernel launch."""
+    if forest.is_leaf.dim() != 3:
+        raise ValueError(f"a batch of forests has fields (B, m, node_limit), got "
+                         f"{tuple(forest.is_leaf.shape)}")
+    return forest_gram_matrix(forest, x1, x2, feat_types, max_depth)
+
+
+def batched_forest_gram_matrix_no_null(
+    forest: Forest,
+    x1: torch.Tensor,
+    x2: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = DEFAULT_MAX_DEPTH,
+) -> torch.Tensor:
+    """:func:`batched_forest_gram_matrix` with the single-leaf trees taken
+    out: their constant n_null / m is subtracted and the rest rescaled by
+    ``m / max(m - n_null, 1)``."""
+    sim = batched_forest_gram_matrix(forest, x1, x2, feat_types, max_depth)
+    m = forest.num_trees
+    n_null = num_null_trees(forest).to(sim.dtype)[..., None, None]
+    scale = m / torch.clamp_min(m - n_null, 1.0)
+    return (sim - n_null / m) * scale
+
+
 def flatten_batch(forest: Forest) -> Forest:
     """Fields (..., m, node_limit) -> (S, m, node_limit), S the product of
     the batch dims (chains x samples)."""

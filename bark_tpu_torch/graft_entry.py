@@ -189,14 +189,16 @@ def launch(fn, n_ranks: int, device=None, backend: str | None = None,
 # counts to 0, and returns what the rank computed with the launches it made.
 
 
-def _reset_launches() -> None:
+def reset_launches() -> None:
+    """Set both kernels' launch counts of this process to 0."""
     from bark_tpu_torch.ops.chol import chol_inv_cuda
     from bark_tpu_torch.ops.gram import gram_cuda
 
     gram_cuda.launches = chol_inv_cuda.launches = 0
 
 
-def _launches() -> dict:
+def launch_counts() -> dict:
+    """Both kernels' launch counts of this process."""
     from bark_tpu_torch.ops.chol import chol_inv_cuda
     from bark_tpu_torch.ops.gram import gram_cuda
 
@@ -208,12 +210,12 @@ def rank_sampler(mesh, device, seed, n_points, num_chains, num_trees, params_kw=
     rank's run and the diagnostics."""
     from bark_tpu_torch.parallel.sharding import shard_model, sharded_run_sampler
 
-    _reset_launches()
+    reset_launches()
     _, params, model, X, y, bounds, ft = _problem(
         n_points, num_chains, num_trees, params_kw, device
     )
     run, diag = sharded_run_sampler(seed, shard_model(model, mesh), X, y, bounds, ft, params, mesh)
-    return {"run": run, "diag": diag, "launches": _launches()}
+    return {"run": run, "diag": diag, "launches": launch_counts()}
 
 
 def rank_pt_swap(mesh, device, u, chains, betas, mlls, parity):
@@ -232,7 +234,7 @@ def rank_pt(mesh, device, seed, n_points, num_trees, num_steps, beta_min=0.05, p
     from bark_tpu_torch.parallel.sharding import shard_model
     from bark_tpu_torch.parallel.tempering import run_parallel_tempering_sharded
 
-    _reset_launches()
+    reset_launches()
     _, params, model, X, y, bounds, ft = _problem(
         n_points, mesh.size(), num_trees, params_kw, device
     )
@@ -241,7 +243,7 @@ def rank_pt(mesh, device, seed, n_points, num_trees, num_steps, beta_min=0.05, p
         seed, local.forest, local.noise, local.scale, X, y, bounds, ft, params, mesh,
         num_steps=num_steps, beta_min=beta_min,
     )
-    return {"run": run, "launches": _launches()}
+    return {"run": run, "launches": launch_counts()}
 
 
 def rank_smc(mesh, device, seed, n_points, num_trees, num_particles, num_rounds,
@@ -250,14 +252,14 @@ def rank_smc(mesh, device, seed, n_points, num_trees, num_particles, num_rounds,
     by ``seed``."""
     from bark_tpu_torch.parallel.smc import run_smc_sharded
 
-    _reset_launches()
+    reset_launches()
     _, params, _, X, y, bounds, ft = _problem(n_points, 1, num_trees, params_kw, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     result = run_smc_sharded(
         gen, X, y, bounds, ft, params, mesh, num_particles=num_particles,
         num_rounds=num_rounds, mutation_steps=mutation_steps,
     )
-    return {"result": result, "launches": _launches()}
+    return {"result": result, "launches": launch_counts()}
 
 
 def rank_scoring(mesh, device, acq, candidates, feat_types, max_depth=16,
@@ -267,9 +269,9 @@ def rank_scoring(mesh, device, acq, candidates, feat_types, max_depth=16,
     from bark_tpu_torch.optimizer.acquisition import evaluate_acquisition_sharded
     from bark_tpu_torch.optimizer.search import propose
 
-    _reset_launches()
+    reset_launches()
     out = {"scores": evaluate_acquisition_sharded(acq, candidates, feat_types, mesh, max_depth)}
-    out["launches"] = _launches()
+    out["launches"] = launch_counts()
     if search_draws is not None:
         out["proposal"] = propose(search_draws, acq, domain, feat_types, max_depth=max_depth,
                                   return_center=False, mesh=mesh)
@@ -281,12 +283,12 @@ def rank_cg(mesh, device, model, train_x, train_y, candidates, feat_types, max_d
     """``forest_predict_cg`` with the training rows split over the ranks."""
     from bark_tpu_torch.models.gp import forest_predict_cg
 
-    _reset_launches()
+    reset_launches()
     mu, var = forest_predict_cg(
         model.forest, model.noise, model.scale, train_x, train_y, candidates, feat_types,
         max_depth, train_mask=train_mask, mesh=mesh,
     )
-    return {"mu": mu, "var": var, "launches": _launches()}
+    return {"mu": mu, "var": var, "launches": launch_counts()}
 
 
 # --- single-process counterparts ------------------------------------------------
@@ -297,8 +299,8 @@ def single_process_pt(seed, num_replicas, forest, noise, scale, X, y, bounds, fe
     """What :func:`run_parallel_tempering_sharded` computes over R ranks, in
     one process: each replica's step on its own (one row, as on its rank),
     from the draws its rank makes, then :func:`pt_swap_states` on the R rows
-    for each phase. Returns the (T, R) MLL trace, the (T,) swap rate and the
-    final states."""
+    for each phase. Returns the (T, R) MLL trace, the (T,) swap rate, the
+    final states and the (T, R) noise trace."""
     from bark_tpu_torch.parallel.sharding import rank_generator
     from bark_tpu_torch.parallel.tempering import geometric_ladder, pt_swap_states
 
@@ -314,6 +316,7 @@ def single_process_pt(seed, num_replicas, forest, noise, scale, X, y, bounds, fe
     swap_gen = torch.Generator(device=dev).manual_seed(seed)
     cat = lambda rows: pytree.tree_map(lambda *t: None if t[0] is None else torch.cat(t), *rows)  # noqa: E731
     mlls, rates = [], []
+    noises = []
     for _ in range(num_steps):
         # the draws of draw_sharded_pt_round: each rank's step from its own
         # generator, the uniforms (alike on every rank) from the shared one
@@ -328,8 +331,9 @@ def single_process_pt(seed, num_replicas, forest, noise, scale, X, y, bounds, fe
         chains, acc_o = pt_swap_states(u_odd, chains, betas, chains.mll, 1)
         states = [chains.take(torch.tensor([i], device=dev)) for i in range(r)]
         mlls.append(chains.mll)
+        noises.append(chains.noise)
         rates.append((acc_e.sum() + acc_o.sum()).to(torch.float32) / (2.0 * max(r - 1, 1)))
-    return torch.stack(mlls), torch.stack(rates), states
+    return torch.stack(mlls), torch.stack(rates), states, torch.stack(noises)
 
 
 # --- the dry run ------------------------------------------------------------------

@@ -1,17 +1,21 @@
-"""Host-side tree construction from nested specs (numpy only).
+"""Host-side tree construction from nested specs.
 
     ("leaf",)
     ("split", feature_idx, threshold, left_spec, right_spec)
 
 Children are allocated at the next two free slots, the layout the sampler's
 proposals produce, so hand-built trees look like sampled ones.
+:func:`build_tree_arrays` gives one tree's numpy arrays, :func:`build_forest`
+a :class:`~bark_tpu_torch.forest.Forest` of tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from bark_tpu_torch.forest import DEFAULT_NODE_LIMIT
+from bark_tpu_torch.forest import DEFAULT_NODE_LIMIT, Forest, forest_from_numpy
+
+LEAF = ("leaf",)
 
 
 def build_tree_arrays(spec, node_limit: int = DEFAULT_NODE_LIMIT) -> dict:
@@ -50,3 +54,13 @@ def build_tree_arrays(spec, node_limit: int = DEFAULT_NODE_LIMIT) -> dict:
     assign(0, spec, 0, 0)
     return arrs
 
+
+
+def build_forest(specs, node_limit: int = DEFAULT_NODE_LIMIT, device=None) -> Forest:
+    """A Forest (fields ``(m, node_limit)``) from a list of tree specs, on
+    ``device`` (None: the CUDA device, an error without one)."""
+    from bark_tpu_torch.models.surrogate import resolve_device
+
+    trees = [build_tree_arrays(s, node_limit) for s in specs]
+    stacked = {k: np.stack([t[k] for t in trees]) for k in trees[0]}
+    return forest_from_numpy(stacked, resolve_device(device))

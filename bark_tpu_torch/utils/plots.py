@@ -17,7 +17,9 @@ def _np(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _plt():
+def pyplot():
+    """``matplotlib.pyplot`` on the headless Agg backend; a RuntimeError
+    naming matplotlib where it is not installed."""
     try:
         import matplotlib
     except ImportError as e:
@@ -32,7 +34,7 @@ def _plt():
 
 def plot_gp_1d(ax, x, mu, std, train_x=None, train_y=None, true_f=None):
     """1-D posterior mean ± 2 std (plot_gp.py:11-45)."""
-    _plt()
+    pyplot()
     order = np.argsort(x.reshape(-1))
     x, mu, std = (_np(a).reshape(-1)[order] for a in (x, mu, std))
     ax.plot(x, mu, label="posterior mean")
@@ -48,13 +50,13 @@ def plot_gp_1d(ax, x, mu, std, train_x=None, train_y=None, true_f=None):
 def plot_covariance(ax, K):
     """Kernel heatmap (plot_gp.py covariance panel)."""
     im = ax.imshow(_np(K), cmap="viridis")
-    _plt().colorbar(im, ax=ax)
+    pyplot().colorbar(im, ax=ax)
     return ax
 
 
 def plot_bo_trace(ax, best_trace, label=None):
     """Best-so-far regret curve (logger.py:84-86 / plot_bo_runs intent)."""
-    _plt()
+    pyplot()
     ax.plot(np.minimum.accumulate(_np(best_trace)), label=label)
     ax.set_xlabel("iteration")
     ax.set_ylabel("best observed")
@@ -65,7 +67,7 @@ def plot_bo_trace(ax, best_trace, label=None):
 
 def plot_mll_trace(ax, mlls):
     """Per-chain MLL traces (analyse_mll_arr.py:4-7 intent)."""
-    _plt()
+    pyplot()
     mlls = np.atleast_2d(_np(mlls))
     for i, chain in enumerate(mlls):
         ax.plot(chain, alpha=0.8, label=f"chain {i}")
@@ -78,7 +80,7 @@ def plot_mll_trace(ax, mlls):
 def plot_forest_depths(ax, forest):
     """Histogram of active-leaf depths across a forest (tree-structure
     visualization replacing the reference's stale plot_trees.py)."""
-    _plt()
+    pyplot()
     depth = _np(forest.depth)
     leaf = _np(forest.active & forest.is_leaf)
     ax.hist(depth[leaf].reshape(-1), bins=np.arange(0, depth.max() + 2) - 0.5)
@@ -130,7 +132,7 @@ def format_tree(forest, tree_idx: int, feature_names=None) -> str:
 
 def plot_tree(ax, forest, tree_idx: int, feature_names=None):
     """Draw one tree as a node-link diagram (plot_trees.py intent)."""
-    _plt()
+    pyplot()
     is_leaf = _np(forest.is_leaf)[tree_idx]
     feature = _np(forest.feature)[tree_idx]
     threshold = _np(forest.threshold)[tree_idx]
@@ -180,4 +182,4 @@ def plot_tree(ax, forest, tree_idx: int, feature_names=None):
 def save_fig(fig, path):
     fig.tight_layout()
     fig.savefig(path, dpi=120)
-    _plt().close(fig)
+    pyplot().close(fig)

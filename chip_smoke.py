@@ -92,7 +92,7 @@ in both of its tiers, in phases:
   8. the BO loop: (a) TreeFunction(dim=2, m=10, seed=1), 8 initial points,
      2 chains x 8 samples of 20 trees, 1024 candidates x 3 rounds, 45
      iterations through ``make_strategy("BARK", ...)`` on the default (CUDA)
-     device, for seeds 0, 1 and 2. Required of every seed: each ask in the
+     device, for seed 0. Required of every seed: each ask in the
      domain, ``fallbacks == 0`` and the best y after the loop strictly
      below the best of the 8 initial points (unless those already hold the
      grid minimum). Printed: the
@@ -105,7 +105,7 @@ in both of its tiers, in phases:
   9. tempered fitting: (a) parallel tempering (``run_parallel_tempering``) on the noiseless
      TreeFunction(dim=5, m=50, seed=1) at N=512 (the data of
      ``benchmarks/ab_tempered.py``), 4 ladders x 8 replicas = 32 chain rows
-     with a temperature each, 300 rounds from empty forests in the leaf tier
+     with a temperature each, 150 rounds from empty forests in the leaf tier
      (R=256). Checks: every ladder's betas a permutation of the geometric
      ladder in every round, a swap rate in (0, 1), a finite cold MLL, K2
      once per init and round and K1 never, final leaves equal to a fresh
@@ -167,7 +167,7 @@ in both of its tiers, in phases:
      1024 candidates x 3 rounds, seeds 0 and 1: every ask in the domain,
      the best y below the initial best unless those hold the grid minimum.
      (c) ``benchmarks/mf_bo.run_study`` at the example's defaults (seed 0,
-     6 initial points, 20 iterations, 256 candidates, 16 f*): fidelities in
+     6 initial points, 10 iterations, 256 candidates, 16 f*): fidelities in
      {0, 1}, the cost strictly growing, the target incumbent never worse,
      11 K1 launches an iteration. (d) one ``MultiFidelityStrategy.ask`` at
      N = 300 (CurrinExp2D, 150 points at each fidelity, 2048 candidates x
@@ -187,11 +187,11 @@ in both of its tiers, in phases:
      up to reported near-ties; cached leaves equal a fresh routing, f_total
      the sum of leaf values (1e-5 relative), finite sigma2, a tree accept
      rate in (0, 1), and no K1 or K2 launch. (b) ``run_regression`` on
-     ``regression_treefunction.yaml``'s settings (3 of its 5 runs) for BART
+     ``regression_treefunction.yaml``'s settings (2 of its 5 runs) for BART
      and BARK: MSE under the mean predictor's. (c) ``run_study`` on the
      example configurations (``EXAMPLE_CONFIGS``) at their ``num_init``:
-     TreeFunction dim 5 with BART (10 iterations), StyblinskiTang dim 5 with
-     RelaxedGP (20),
+     TreeFunction dim 5 with BART (5 iterations), StyblinskiTang dim 5 with
+     RelaxedGP (10),
      PestControl with BARTGrid (5), G6 and PressureVessel with BARK at
      ``model_bark.yaml`` (3 each) and StyblinskiTang with GridUCB over BARK
      (3; GridUCB refuses the constrained PressureVessel, as the reference's
@@ -228,7 +228,38 @@ in both of its tiers, in phases:
      (128, 2048, 224) and K2 at the per-rank refresh shape (64, 50, 50),
      timed.
 
-The whole run takes twelve to fifteen minutes of command time on an H100 (the sampler's
+ 14. the forest Gram API and the drivers of ``benchmarks/`` that twin the
+     reference's last scripts (no new kernel). Each path runs with the
+     counts set to 0 just before it and read just after, and a recorder
+     that keeps the first input of each K1 and K2 shape it launches; every
+     recorded shape is then held against the plain version on that input
+     (K1 exact; K2 |L - L_plain| / max |L_plain| <= 5e-4 and |E L - I| <=
+     5e-4), and each kernel's most launched shape on the path timed. (a)
+     ``forest_gram_matrix`` and the batched and no-null forms at 16 prior
+     forests x (4096, 224) rows: one K1 launch a call, equal to the plain
+     Gram (the no-null form to its rescaling). (b) ``bo_largen.run_study`` at
+     the reference's configuration (N=4080, 4096 candidates x 3 rounds, 4
+     chains x 4 samples, m=50, seed 0), the initial fit and 2 iterations:
+     a finite, non-increasing incumbent, finite ``fit_diagnostics``, no
+     random fallback, every ask through ``build_acquisition_lr`` at padded
+     N > 2048 and a predict through ``forest_predict_leaf``, K2 launched and
+     K1 not; the ask split into the factored build, the scored batches and
+     the centring. (c) ``largen_timing`` at N=8192: one lowrank ask (S=16)
+     and the CG and leaf predicts. (d) ``mcmc_record`` at the MCMC
+     configuration pair (N=50, 4 chains x 500 steps): finite MLLs of shape
+     (4, 500), an R-hat, K1 at (4,50,50) and K2 at (8,50,50). (e)
+     ``tempered_smc`` in one process (8 replicas x 200 rounds, 64
+     particles) and sharded on one NCCL rank: rank 0's swap, MLL and noise
+     traces equal to ``graft_entry.single_process_pt``'s bit for bit, the
+     SMC to ``run_smc``'s within 1e-5. (f) ``bandit_bo`` (3 iterations),
+     ``regression_hpo`` (a 2 x 2 grid), ``samples_ablation`` (one run of a
+     2 x 2 grid), ``priors_and_proposals`` (1000 steps x 64 chains; a
+     lognormal walk and the reference ratio's halved tail), ``scaling`` (1
+     and 2 ranks, 10 steps, a dry run: two Gloo ranks share the card) and
+     ``plot_bo_runs``'s summary over ``results/regret_r2``; without
+     matplotlib its figure must raise naming it.
+
+The whole run takes eleven to sixteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
@@ -243,7 +274,11 @@ and "mf ask N=300", phase 12's "bart fit N=200", "bart N=4096",
 "regression BART/BARK", "study <benchmark> <model>" and "griducb ask", and
 phase 13's "sharded sampler N=50, 1 NCCL rank", "sharded scoring ..., 1 NCCL
 rank" and "sharded <part>, Gloo rank <r> of 2" for the sampler, leaf, PT,
-SMC, scoring and CG parts), error, times
+SMC, scoring and CG parts, and phase 14's "forest gram api", "bo_largen
+N=4080", "largen ask lowrank N=8192", "largen predict N=8192", "mcmc_record
+N=50", "tempered_smc single", "tempered_smc sharded, 1 NCCL rank",
+"bandit_bo", "regression_hpo", "samples_ablation", "priors_and_proposals"
+and "scaling, <n> rank(s), rank 0"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -277,10 +312,10 @@ PREDICT_CHAINS = 16  # x 8 samples: S = 128 posterior samples
 PREDICT_POINTS = 1024  # held-out points
 ACQ_BATCH = 4096  # candidates of one scored batch
 BIG_N = 4096  # observations of the leaf-space predict and the factored build
-BO_SEEDS = (0, 1, 2)
+BO_SEEDS = (0,)
 BO_ITERATIONS = 45
 ORACLE_ATOL = ORACLE_RTOL = 1e-3  # float32 posterior against the float64 oracle
-PT_N, PT_LADDERS, PT_REPLICAS, PT_ROUNDS, BETA_MIN = 512, 4, 8, 300, 0.05
+PT_N, PT_LADDERS, PT_REPLICAS, PT_ROUNDS, BETA_MIN = 512, 4, 8, 150, 0.05
 SMC_N, SMC_PARTICLES, SMC_ROUNDS, SMC_MUTATIONS = 200, 64, 16, 2
 TEMPERED_BO_ITERATIONS = 3
 CHOL_NS, CHOL_CHAINS, CHOL_STEPS = (50, 200, 512), 16, 5
@@ -289,7 +324,7 @@ SAMPLING_N, SAMPLING_POINTS, SAMPLING_DRAWS = 224, 1024, 256  # S = 4 chains x 8
 CG_N, CG_CANDIDATES, CG_ORACLE_SAMPLES = 4096, 256, 4
 LEAFGP_N, LEAFGP_POINTS, LEAFGP_ITERATIONS, LEAFGP_ROUNDS = 200, 1024, 5, 4
 LEAFGP_LOOP_SEEDS, LEAFGP_LOOP_ITERATIONS = (0, 1), 20
-MF_ITERATIONS, MF_PER_FIDELITY = 20, 150
+MF_ITERATIONS, MF_PER_FIDELITY = 10, 150
 DIST_SEED = 13
 DIST_STEPS = dict(warmup_steps=0, num_samples=2, steps_per_sample=5)  # 10 steps
 DIST_FIT_CHAINS, DIST_FIT_N = 16, 200  # x 8 samples: S = 128 at bucket 224
@@ -298,6 +333,15 @@ DIST_PT_N, DIST_PT_ROUNDS = 512, 10
 DIST_SMC = dict(n_points=50, num_particles=16, num_rounds=8, mutation_steps=2)
 DIST_CG_CANDIDATES = 256
 TRACE_STEPS = 3
+
+
+#: depth cut from earlier phases so that the whole run, phase 14 included,
+#: stays well inside its time limit on a slow host
+CUTS = ("phase 8 a: seed 0 (seeds 1 and 2 dropped: seed 2's initial points hold the "
+        "grid minimum, seed 1 improves at its first ask); phase 9 a: 150 PT rounds (was "
+        "300); phase 11: the MF study 10 iterations (was 20); phase 12: 2 regression runs "
+        "(was 3), studies TreeFunction/BART 5 iterations (was 10) and "
+        "StyblinskiTang/RelaxedGP 10 (was 20)")
 
 
 def log(msg: str) -> None:
@@ -1800,10 +1844,10 @@ def phase_booster_forests(torch, dev, smi):
 
 BART_N, BART_BIG_N, BART_BIG_CHAINS, BART_POINTS, BART_REPLAY = 200, 4096, 4, 1024, 5
 GRID_N, GRID_CHAINS, GRID_SAMPLES, GRID_MAX = 50, 4, 8, 2**14
-REGRESSION_RUNS = 3  # of the configuration's 5: iterations cut to keep phase 12 near 3 min
+REGRESSION_RUNS = 2  # of the configuration's 5
 STUDIES = (  # (benchmark config, model config, iterations)
-    ("benchmark_treefunction", "model_bart", 10),
-    ("benchmark_styblinskitang", {"model": "RelaxedGP"}, 20),
+    ("benchmark_treefunction", "model_bart", 5),
+    ("benchmark_styblinskitang", {"model": "RelaxedGP"}, 10),
     ("benchmark_pestcontrol", {"model": "BARTGrid", "model_params": "model_bart"}, 5),
     ("benchmark_g6", "model_bark", 3),
     ("benchmark_pressurevessel", "model_bark", 3),
@@ -2302,7 +2346,7 @@ def phase_distributed(torch, dev, smi, tf):
                 f"sharded sampler rank {rank}: K1 and K2 {steps + 1} times, got {c}")
     # PT at N=512: both ranks follow pt_swap_states driving the same replicas
     _, pp, pmodel, pX, py, pb, pft = graft_entry._problem(DIST_PT_N, 2, SLICE_TREES, None, dev)
-    mlls, rates, states = graft_entry.single_process_pt(
+    mlls, rates, states, _ = graft_entry.single_process_pt(
         DIST_SEED, 2, pmodel.forest, pmodel.noise, pmodel.scale, pX, py, pb, pft, pp,
         DIST_PT_ROUNDS)
     for rank, r in enumerate(out):
@@ -2446,6 +2490,408 @@ def phase_distributed(torch, dev, smi, tf):
     return launches, times
 
 
+# --- phase 14: the last entry points ------------------------------------------------
+GRAM_API_FORESTS, GRAM_API_ROWS = 16, (4096, 224)
+LARGEN = dict(seed=0, n_init=4080, num_iter=2, num_candidates=4096, num_chains=4,
+              num_samples=4)  # the reference's configuration; 2 of its 6 iterations
+LARGEN_TIMING_N = 8192
+BANDIT_ITERATIONS = 3
+HPO_GRID = ((0.5, 0.95), (1.0, 2.0))  # alphas, betas
+ABLATION_GRID = ((1, 2), (2, 5))  # chains, samples; one run
+PRIOR_STEPS, PRIOR_CHAINS = 1000, 64
+SCALING_RANKS, SCALING_STEPS = (1, 2), 10
+
+
+class _Recorded:
+    """A kernel wrapper that reports each call first; its ``launches`` is the
+    wrapped function's, which the wrapper's module increments by name."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep = fn, keep
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, *args, **kwargs):
+        self.keep(*args, **kwargs)
+        return self.fn(*args, **kwargs)
+
+
+class KernelRecorder:
+    """While active, counts each kernel's launches by shape and keeps the
+    arguments of the first launch at each shape (``gram_cuda`` and
+    ``chol_inv_cuda`` wrapped in their modules, where every caller looks
+    them up). The launch counts go on as without it."""
+
+    def __init__(self):
+        from bark_tpu_torch.ops import chol as chol_module
+        from bark_tpu_torch.ops import gram as gram_module
+
+        self.modules = (gram_module, chol_module)
+        self.shapes = {"gram": {}, "chol_inv": {}}  # shape -> launches
+        self.args = {"gram": {}, "chol_inv": {}}  # shape -> first arguments
+
+    def __enter__(self):
+        gram_module, chol_module = self.modules
+        self.originals = gram_module.gram_cuda, chol_module.chol_inv_cuda
+
+        def gram(l1, l2, mask1=None, mask2=None, node_limit=64):
+            sym = gram_module.is_symmetric_call(l1, l2, mask1, mask2)
+            key = (*l1.shape[:2], l2.shape[1], "sym" if sym else "")
+            self._keep("gram", key, lambda: (l1.clone(), None if sym else l2.clone(),
+                                             mask1, mask2, node_limit))
+
+        def chol(a):
+            self._keep("chol_inv", tuple(a.shape), a.clone)
+
+        gram_module.gram_cuda = _Recorded(self.originals[0], gram)
+        chol_module.chol_inv_cuda = _Recorded(self.originals[1], chol)
+        return self
+
+    def _keep(self, kernel, key, args):
+        self.shapes[kernel][key] = self.shapes[kernel].get(key, 0) + 1
+        if key not in self.args[kernel]:
+            self.args[kernel][key] = args()
+
+    def __exit__(self, *exc):
+        gram_module, chol_module = self.modules
+        gram_module.gram_cuda, chol_module.chol_inv_cuda = self.originals
+
+    def counts(self) -> dict:
+        return {k: sum(v.values()) for k, v in self.shapes.items()}
+
+
+def phase_entry_points(torch, dev, smi, tf):
+    """Phase 14: the forest Gram API and the drivers of ``benchmarks/`` that
+    twin the reference's last scripts, on the card. Returns the launches of
+    each path and the kernels' times at the paths' new shapes."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    from bark_tpu_torch.benchmarks import (
+        bandit_bo, bo_largen, largen_timing, mcmc_record, plot_bo_runs, priors_and_proposals,
+        regression_hpo, samples_ablation, scaling, tempered_smc,
+    )
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.benchmarks.study import EXAMPLE_CONFIGS
+    from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior
+    from bark_tpu_torch.forest import (
+        Forest, batched_forest_gram_matrix, batched_forest_gram_matrix_no_null,
+        forest_gram_matrix, num_null_trees, route_forest,
+    )
+    from bark_tpu_torch.models import surrogate as surrogate_module
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
+    from bark_tpu_torch.optimizer import search
+    from bark_tpu_torch.optimizer.acquisition import LR_THRESHOLD
+    from bark_tpu_torch.strategies import tree_kernel
+
+    t_phase = time.perf_counter()
+    launches, times, held = {}, {}, set()
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = Path(tmp.name)
+
+    def drive(path, fn, *args, **kwargs):
+        """Run one path with the counts set to 0 just before and read just
+        after; returns its result and its recorder."""
+        gram_cuda.launches = chol_inv_cuda.launches = 0
+        t0 = time.perf_counter()
+        with KernelRecorder() as rec:
+            result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+        require(counts == rec.counts(), f"{path}: recorded launches {rec.counts()} == {counts}")
+        launches[path] = counts
+        log(f"[phase 14] {path}: {time.perf_counter() - t0:.2f} s; launches {counts}; "
+            f"shapes K1 {rec.shapes['gram']} K2 {rec.shapes['chol_inv']}")
+        return result, rec
+
+    def hold(path, rec):
+        """Each recorded shape's first launch against the plain version on the
+        same input (K1 exact; K2 |L - L_plain| / max |L_plain| <= 5e-4 and
+        |E L - I| <= 5e-4); each kernel's most launched shape on the path
+        timed."""
+        top = {k: max(v, key=v.get) for k, v in rec.shapes.items() if v}
+        for key, (l1, l2, m1, m2, nl) in rec.args["gram"].items():
+            l2 = l1 if l2 is None else l2
+            m2 = m1 if key[-1] == "sym" else m2
+            got = gram_module.gram_cuda(l1, l2, m1, m2, nl)
+            require(torch.equal(got, gram_plain(l1, l2, m1, m2)),
+                    f"K1 {key} of {path} equals its plain version")
+            name = f"({key[0]},{key[1]},{key[2]}){' sym' if key[-1] else ''} {path}"
+            if key == top.get("gram") and ("gram", key) not in held:
+                held.add(("gram", key))
+                t = time_k1(torch, gram_module, l1, l2, m1, m2, nl)
+                times[("gram", name)] = t
+                log(f"[K1] {name}: exact; device {t['device_ms']} ms ({t['device_source']}), "
+                    f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+                    f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms "
+                    f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
+            else:
+                log(f"[K1] {name}: exact")
+        for key, a in rec.args["chol_inv"].items():
+            L, E = chol_inv_cuda(a)
+            Lp, _ = chol_inv_plain(a)
+            err = rel_err(torch, L, Lp)
+            resid = (E @ L - torch.eye(key[-1], device=dev)).abs().max().item()
+            name = f"({key[0]},{key[1]},{key[2]}) {path}"
+            require(err <= REL_BOUND and resid <= 5e-4,
+                    f"K2 {name}: |L - L_plain| / max |L_plain| = {err}, |E L - I| = {resid}")
+            if key == top.get("chol_inv") and ("chol_inv", key) not in held:
+                held.add(("chol_inv", key))
+                t = time_k2(torch, lambda: chol_inv_cuda(a), lambda: chol_inv_plain(a), key[0],
+                            key[1], "chol_inv_kernel")
+                times[("chol_inv", name)] = t
+                log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; device "
+                    f"{t['device_ms']:.5f} ms ({t['device_source']}), call "
+                    f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / {t['library_ms']} "
+                    f"device (cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                    f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+            else:
+                log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}")
+
+    # --- (a) the forest Gram API ------------------------------------------------------
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    forests = sample_forest_prior(draw_prior(gen, GRAM_API_FORESTS, SLICE_TREES, device=dev),
+                                  SLICE_TREES, bounds, ft)
+    rng = np.random.default_rng(14)
+    x1, x2 = (torch.as_tensor(tf.domain.sample(n, rng), device=dev) for n in GRAM_API_ROWS)
+    one = Forest(*(t[0] for t in forests))
+
+    def gram_api():
+        return (forest_gram_matrix(one, x1, x2, ft),
+                batched_forest_gram_matrix(forests, x1, x2, ft),
+                batched_forest_gram_matrix_no_null(forests, x1, x2, ft))
+
+    (g_one, batched, no_null), rec = drive("forest gram api", gram_api)
+    require(launches["forest gram api"] == {"gram": 3, "chol_inv": 0},
+            f"the Gram API launches K1 once a call: {launches['forest gram api']}")
+    l1, l2 = route_forest(forests, x1, ft), route_forest(forests, x2, ft)
+    plain = gram_plain(l1, l2)
+    m = SLICE_TREES
+    n_null = num_null_trees(forests).to(plain.dtype)[..., None, None]
+    require(torch.equal(batched, plain) and torch.equal(g_one, plain[0]),
+            "forest_gram_matrix and the batched form equal the plain Gram")
+    require(torch.equal(no_null, (plain - n_null / m) * (m / torch.clamp_min(m - n_null, 1.0))),
+            "the no-null form equals the plain Gram rescaled")
+    hold("forest gram api", rec)
+
+    # --- (b) bo_largen at full width ----------------------------------------------------
+    built = []
+    build, lr_builds = bo_largen.build, []
+    predict_leaf = surrogate_module.forest_predict_leaf
+    build_lr = tree_kernel.build_acquisition_lr
+
+    # the ask split into the factored build, the scored batches and the
+    # centring, each clocked between device synchronisations (as phase 8 b)
+    parts, asks = {}, []
+
+    def clocked(part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[part] = parts.get(part, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def counting_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        strat = built[-1][1]
+        ask = strat.ask
+
+        def split_ask(*a, **k):
+            parts.clear()
+            out = ask(*a, **k)
+            asks.append(dict(parts))
+            return out
+
+        strat.ask = split_ask
+        return built[-1]
+
+    def counting_lr(*args, **kwargs):
+        lr_builds.append(args[1].shape[0])
+        return build_lr(*args, **kwargs)
+
+    bo_path = f"bo_largen N={LARGEN['n_init']}"
+    patched = [(bo_largen, "build", counting_build),
+               (tree_kernel, "build_acquisition_lr", clocked("build", counting_lr)),
+               (search, "evaluate_acquisition", clocked("score", search.evaluate_acquisition)),
+               (search, "_leaf_box", clocked("centre", search._leaf_box)),
+               (search, "_box_center", clocked("centre", search._box_center))]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        res, rec = drive(bo_path, bo_largen.run_study, device=dev, **LARGEN)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    bench, strat = built[0]
+    its = res["iterations"]
+    bests = [r["best_y"] for r in its]
+    require(len(its) == LARGEN["num_iter"] and all(np.isfinite(bests))
+            and all(b1 <= b0 for b0, b1 in zip(bests, bests[1:])),
+            f"bo_largen: a finite, non-increasing incumbent {bests}")
+    require(all(np.isfinite(v) for r in its for v in r["fit_diagnostics"].values()),
+            f"bo_largen: finite fit_diagnostics {[r['fit_diagnostics'] for r in its]}")
+    require(strat.fallbacks == 0, "bo_largen: no ask fell back to a random candidate")
+    n_pad = strat.surrogate.train_data[0].shape[0]
+    require(len(lr_builds) >= LARGEN["num_iter"] and min(lr_builds) > LR_THRESHOLD,
+            f"bo_largen: every ask took the factored acquisition at padded N={lr_builds}")
+    counts = launches[bo_path]
+    require(counts["gram"] == 0 and counts["chol_inv"] > 0,
+            f"bo_largen: the leaf tier and the factored build launch K2, never K1 {counts}")
+    calls = []
+
+    def counting_predict_leaf(*args, **kwargs):
+        calls.append(args[3].shape[0])
+        return predict_leaf(*args, **kwargs)
+
+    surrogate_module.forest_predict_leaf = counting_predict_leaf
+    try:
+        probe = bench.domain.sample(256, np.random.default_rng(1))
+        mu, sd = strat.surrogate.predict(probe)
+    finally:
+        surrogate_module.forest_predict_leaf = predict_leaf
+    require(calls == [n_pad] and n_pad > strat.surrogate.cg_threshold
+            and bool(np.isfinite(mu).all() and np.isfinite(sd).all() and (sd > 0).all()),
+            f"bo_largen: predict at padded N={n_pad} took the leaf-space posterior {calls}")
+    log(f"[phase 14 b] bo_largen N={LARGEN['n_init']}, {LARGEN['num_candidates']} candidates, "
+        f"{LARGEN['num_chains']} x {LARGEN['num_samples']}, m=50, seed {LARGEN['seed']}: "
+        f"initial fit {res['initial_fit_s']} s; ask/fit s "
+        f"{[(r['ask_s'], r['fit_s']) for r in its]}; best {bests} (probe min "
+        f"{res['f_star_probe_200k']:.4f}); fit_diagnostics {its[-1]['fit_diagnostics']}; "
+        f"backends: acquisition factored (build_acquisition_lr x {len(lr_builds)}, padded N "
+        f"{lr_builds} > {LR_THRESHOLD}), predict leaf at padded N={n_pad} > "
+        f"{strat.surrogate.cg_threshold}; K2 launches by shape {rec.shapes['chol_inv']} on {smi}")
+    for i, (r, split) in enumerate(zip(its, asks)):
+        log(f"[phase 14 b] iteration {i}: fit {r['fit_s']} s + ask {r['ask_s']} s (build "
+            f"{split.get('build', 0.0):.4f}, score {split.get('score', 0.0):.4f}, centring "
+            f"{split.get('centre', 0.0):.4f}; between synchronisations)")
+    hold(bo_path, rec)
+
+    # --- (c) largen_timing at N=8192 --------------------------------------------------
+    ask, rec = drive(f"largen ask lowrank N={LARGEN_TIMING_N}", largen_timing.time_ask,
+                     LARGEN_TIMING_N, "lowrank", device=dev)
+    require(ask["in_domain"] and np.isfinite(ask["acq_value"]) and rec.counts()["chol_inv"] > 0,
+            f"largen ask: in the domain, a finite value, K2 launched {ask}")
+    hold(f"largen ask lowrank N={LARGEN_TIMING_N}", rec)
+    rows, rec = drive(f"largen predict N={LARGEN_TIMING_N}", largen_timing.time_predict,
+                      [LARGEN_TIMING_N], dev)
+    require([r["backend"] for r in rows] == ["cg", "leaf"] and rec.counts()["chol_inv"] > 0,
+            f"largen predict at N={LARGEN_TIMING_N}: cg and leaf (dense skipped) {rows}")
+    log(f"[phase 14 c] ask at N={LARGEN_TIMING_N} (lowrank, S=16): {ask}; predict {rows} "
+        f"on {smi}")
+    hold(f"largen predict N={LARGEN_TIMING_N}", rec)
+
+    # --- (d) mcmc_record at its configuration ---------------------------------------------
+    summary, rec = drive("mcmc_record N=50", mcmc_record.run_record, 0,
+                         EXAMPLE_CONFIGS["mcmc_benchmark"], EXAMPLE_CONFIGS["mcmc_model"],
+                         out_dir / "mcmc", dev)
+    mlls = np.load(out_dir / "mcmc" / "mlls.npy")
+    p = EXAMPLE_CONFIGS["mcmc_model"]["model_params"]
+    require(mlls.shape == (p["num_chains"], p["num_samples"]) and np.isfinite(mlls).all()
+            and np.isfinite(summary["r_hat"]),
+            f"mcmc_record: finite mlls of shape (4, 500) and an R-hat {mlls.shape} {summary}")
+    require((4, 50, 50, "sym") in rec.shapes["gram"] and (8, 50, 50) in rec.shapes["chol_inv"],
+            f"mcmc_record: K1 at (4,50,50) and K2 at (8,50,50) {rec.shapes}")
+    log(f"[phase 14 d] mcmc_record 4 chains x 500 steps, N=50: summary {summary}")
+    hold("mcmc_record N=50", rec)
+
+    # --- (e) tempered_smc, single-process and sharded on one NCCL rank ----------------------
+    single, rec = drive("tempered_smc single", tempered_smc.run_single, 0, device=dev)
+    require(0.0 < single["pt"]["swap_rate"] < 1.0 and single["smc"]["final_beta"] == 1.0
+            and np.isfinite(single["smc"]["log_evidence"]),
+            f"tempered_smc: a swap rate in (0, 1), SMC reaching beta 1 {single}")
+    hold("tempered_smc single", rec)
+    t0 = time.perf_counter()
+    sharded = tempered_smc.run_sharded(0, 1, device=dev)
+    rank0 = sharded.pop("ranks")[0]
+    rank_launches = rank0.pop("launches")
+    launches["tempered_smc sharded, 1 NCCL rank"] = rank_launches
+    twin = tempered_smc.sharded_twin(0, 1, device=dev)
+    traces = twin.pop("traces")
+    for k, v in traces.items():
+        require(torch.equal(rank0[k], v.cpu()), f"sharded PT: rank 0's {k} trace equals "
+                f"single_process_pt's")
+    for part, rtol, atol in (("pt", 1e-12, 0.0), ("smc", 1e-5, 1e-6)):
+        for k, v in twin[part].items():
+            require(abs(sharded[part][k] - v) <= rtol * abs(v) + atol,
+                    f"sharded {part} {k} {sharded[part][k]} equals the single process's {v}")
+    require(rank_launches["gram"] > 0 and rank_launches["chol_inv"] > 0,
+            f"the NCCL rank launched both kernels {rank_launches}")
+    log(f"[phase 14 e] tempered_smc single {single}; sharded on one NCCL rank {sharded} "
+        f"({time.perf_counter() - t0:.1f} s with its twin; rank launches {rank_launches})")
+
+    # --- (f) the small drivers --------------------------------------------------------------
+    rows, rec = drive("bandit_bo", bandit_bo.run_bandit, 0, BANDIT_ITERATIONS,
+                      out_dir / "bandit", device=dev)
+    require(len(rows) == BANDIT_ITERATIONS
+            and (out_dir / "bandit" / "bandit_seed=0.csv").exists()
+            and all(b1["best"] <= b0["best"] for b0, b1 in zip(rows, rows[1:])),
+            f"bandit: {BANDIT_ITERATIONS} rows, the best never rising {rows}")
+    hold("bandit_bo", rec)
+    bench_cfg = EXAMPLE_CONFIGS["regression_treefunction"]
+    grid, rec = drive("regression_hpo", regression_hpo.run_hpo, 0, bench_cfg, *HPO_GRID,
+                      out_dir / "hpo", device=dev)
+    require(grid.shape == (2, 2) and np.isfinite(grid).all(), f"hpo grid {grid}")
+    hold("regression_hpo", rec)
+    grid_ab, rec = drive("samples_ablation", samples_ablation.run_ablation, 0, bench_cfg,
+                         out_dir / "ablation", *ABLATION_GRID, 1, device=dev)
+    require(grid_ab.shape == (2, 2) and np.isfinite(grid_ab).all(), f"ablation grid {grid_ab}")
+    hold("samples_ablation", rec)
+    log(f"[phase 14 f] bandit {rows}; hpo NLPD {grid.tolist()}; ablation NLPD "
+        f"{grid_ab.tolist()}")
+    (prior, _), rec = drive("priors_and_proposals", priors_and_proposals.run_study,
+                            PRIOR_STEPS, PRIOR_CHAINS, device=dev)
+    require(abs(prior["proposal_lognormal"]["proposal_log_std"] - 1.0) < 0.1
+            and prior["reference_ratio_for_contrast"]["noise_prior_quantiles_empirical"][2]
+            < 0.7 * prior["noise_prior_quantiles_analytic"][2],
+            f"priors: a lognormal walk, the reference ratio's halved tail {prior}")
+    log(f"[phase 14 f] priors and proposals, {PRIOR_STEPS} steps x {PRIOR_CHAINS} chains: "
+        f"{prior}")
+    payload = scaling.run_scaling(SCALING_RANKS, num_steps=SCALING_STEPS, device=dev)
+    require(payload["dry_run"] and all(r["steps_per_s"] > 0
+                                       for r in payload["weak_scaling"]["results"]),
+            f"scaling: a dry run with positive rates {payload}")
+    for n, c in payload["launches_per_rank"].items():
+        launches[f"scaling, {n} rank(s), rank 0"] = c
+        require(c["gram"] > 0 and c["chol_inv"] > 0, f"scaling rank 0 of {n}: both kernels {c}")
+    log(f"[phase 14 f] scaling (dry run: the ranks share this card) {payload}")
+    runs = plot_bo_runs.load_runs(Path(__file__).resolve().parent / "results" / "regret_r2")
+    summary_runs = plot_bo_runs.summarize(runs)
+    require(summary_runs["PestControl/BARK"]["seeds"] == 5
+            and summary_runs["TreeFunction/BARK"]["final_best_mean"]
+            < summary_runs["TreeFunction/Random"]["final_best_mean"],
+            f"plot_bo_runs summary over results/regret_r2 {summary_runs}")
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            plot_bo_runs.plot(runs, out_dir / "bo_runs.png")
+        except RuntimeError as e:
+            require("matplotlib" in str(e), f"the figure's error names matplotlib: {e}")
+            log(f"[phase 14 f] plot_bo_runs: no matplotlib here; the figure raises: {e}")
+        else:
+            raise RuntimeError("check failed: a figure was drawn without matplotlib")
+    else:
+        plot_bo_runs.plot(runs, out_dir / "bo_runs.png")
+        require((out_dir / "bo_runs.png").exists(), "plot_bo_runs drew its figure")
+    log(f"[phase 14 f] plot_bo_runs summary {summary_runs}")
+    tmp.cleanup()
+    log(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -2466,6 +2912,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
+    log(f"[cuts] {CUTS}")
 
     from bark_tpu_torch.benchmarks.tree_function import (
         TreeFunction,
@@ -2890,6 +3337,11 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 13. the sharded paths, checkpoints, profiling, the last benchmarks ----
     path_launches, path_times = phase_distributed(torch, dev, smi, tf)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 14. the forest Gram API and the last entry points ----------------------
+    path_launches, path_times = phase_entry_points(torch, dev, smi, tf)
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t

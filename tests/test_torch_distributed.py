@@ -175,7 +175,7 @@ def test_sharded_pt_follows_pt_swap_states():
     out = launch(graft_entry.rank_pt, r, seed=seed, n_points=16, num_trees=6,
                  num_steps=steps, params_kw=kw)
     _, params, model, X, y, bounds, ft = graft_entry._problem(16, r, 6, kw)
-    mlls, rates, states = graft_entry.single_process_pt(
+    mlls, rates, states, _ = graft_entry.single_process_pt(
         seed, r, model.forest, model.noise, model.scale, X, y, bounds, ft, params, steps)
     for i, got in enumerate(out):
         run = got["run"]
