@@ -259,7 +259,24 @@ in both of its tiers, in phases:
      ``plot_bo_runs``'s summary over ``results/regret_r2``; without
      matplotlib its figure must raise naming it.
 
-The whole run takes eleven to sixteen minutes of command time on an H100 (the sampler's
+ 15. ``bark_tpu_torch/benchmarks/bench.py``, the twin of the root
+     ``bench.py`` (no new kernel), at the reference's protocol (64 chains,
+     two untimed calls, five timed calls of 50 steps) on the points the
+     slices leave out: the default mode (N=50), its line's keys exactly
+     the reference's four (three runs in a row before the cut in
+     ``CUTS``); the categorical N=50 (2 of 5 features, 5 levels); N=512
+     (the leaf tier at R=256). Each rate is printed beside the TPU's at the
+     same point (``BENCH_CURVE_r05.json``) and the nvidia-smi line, and
+     must be finite and positive. The counts are set to 0 just before the
+     first timed call and read after the last: K1 and K2 once per init and
+     step at N=50 (255 each), the categorical run as the continuous one
+     (same counts and shapes), K2 alone at N=512 (255); each shape's first
+     input held against the plain version as in phase 14. At N=50 and 512
+     one more call under torch.profiler gives the card's busy share (the
+     kernels' summed time over the timed window's mean call), and another
+     under CUDA's sync debug mode counts the host's synchronisations.
+
+The whole run takes eleven to nineteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
 
@@ -278,7 +295,8 @@ SMC, scoring and CG parts, and phase 14's "forest gram api", "bo_largen
 N=4080", "largen ask lowrank N=8192", "largen predict N=8192", "mcmc_record
 N=50", "tempered_smc single", "tempered_smc sharded, 1 NCCL rank",
 "bandit_bo", "regression_hpo", "samples_ablation", "priors_and_proposals"
-and "scaling, <n> rank(s), rank 0"), error, times
+and "scaling, <n> rank(s), rank 0", and phase 15's "bench N=50", "bench N=50
+cat" and "bench N=512"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -341,7 +359,9 @@ CUTS = ("phase 8 a: seed 0 (seeds 1 and 2 dropped: seed 2's initial points hold 
         "grid minimum, seed 1 improves at its first ask); phase 9 a: 150 PT rounds (was "
         "300); phase 11: the MF study 10 iterations (was 20); phase 12: 2 regression runs "
         "(was 3), studies TreeFunction/BART 5 iterations (was 10) and "
-        "StyblinskiTang/RelaxedGP 10 (was 20)")
+        "StyblinskiTang/RelaxedGP 10 (was 20); phase 15: the default mode once (was three "
+        "times in a row; the whole script ran to 1,042 s on a slow host before phase 15, "
+        "which adds ~90 s and each more run ~20 s)")
 
 
 def log(msg: str) -> None:
@@ -2566,6 +2586,57 @@ class KernelRecorder:
         return {k: sum(v.values()) for k, v in self.shapes.items()}
 
 
+def hold_recorded(torch, dev, smi, path, rec, times, held):
+    """Each shape a :class:`KernelRecorder` kept, its first launch against the
+    plain version on the same input (K1 exact; K2 |L - L_plain| / max
+    |L_plain| <= 5e-4 and |E L - I| <= 5e-4); each kernel's most launched
+    shape on the path timed into ``times`` unless ``held`` has it. These
+    launches come after the path's counts were read."""
+    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
+    from bark_tpu_torch.ops import gram as gram_module
+    from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.gram import gram_plain
+
+    top = {k: max(v, key=v.get) for k, v in rec.shapes.items() if v}
+    for key, (l1, l2, m1, m2, nl) in rec.args["gram"].items():
+        l2 = l1 if l2 is None else l2
+        m2 = m1 if key[-1] == "sym" else m2
+        got = gram_module.gram_cuda(l1, l2, m1, m2, nl)
+        require(torch.equal(got, gram_plain(l1, l2, m1, m2)),
+                f"K1 {key} of {path} equals its plain version")
+        name = f"({key[0]},{key[1]},{key[2]}){' sym' if key[-1] else ''} {path}"
+        if key == top.get("gram") and ("gram", key) not in held:
+            held.add(("gram", key))
+            t = time_k1(torch, gram_module, l1, l2, m1, m2, nl)
+            times[("gram", name)] = t
+            log(f"[K1] {name}: exact; device {t['device_ms']} ms ({t['device_source']}), "
+                f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
+                f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
+        else:
+            log(f"[K1] {name}: exact")
+    for key, a in rec.args["chol_inv"].items():
+        L, E = chol_inv_cuda(a)
+        Lp, _ = chol_inv_plain(a)
+        err = rel_err(torch, L, Lp)
+        resid = (E @ L - torch.eye(key[-1], device=dev)).abs().max().item()
+        name = f"({key[0]},{key[1]},{key[2]}) {path}"
+        require(err <= REL_BOUND and resid <= 5e-4,
+                f"K2 {name}: |L - L_plain| / max |L_plain| = {err}, |E L - I| = {resid}")
+        if key == top.get("chol_inv") and ("chol_inv", key) not in held:
+            held.add(("chol_inv", key))
+            t = time_k2(torch, lambda: chol_inv_cuda(a), lambda: chol_inv_plain(a), key[0],
+                        key[1], "chol_inv_kernel")
+            times[("chol_inv", name)] = t
+            log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; device "
+                f"{t['device_ms']:.5f} ms ({t['device_source']}), call "
+                f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / {t['library_ms']} "
+                f"device (cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
+        else:
+            log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}")
+
+
 def phase_entry_points(torch, dev, smi, tf):
     """Phase 14: the forest Gram API and the drivers of ``benchmarks/`` that
     twin the reference's last scripts, on the card. Returns the launches of
@@ -2578,7 +2649,6 @@ def phase_entry_points(torch, dev, smi, tf):
         bandit_bo, bo_largen, largen_timing, mcmc_record, plot_bo_runs, priors_and_proposals,
         regression_hpo, samples_ablation, scaling, tempered_smc,
     )
-    from bark_tpu_torch.benchmarks.kernel_timing import time_k1, time_k2
     from bark_tpu_torch.benchmarks.study import EXAMPLE_CONFIGS
     from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior
     from bark_tpu_torch.forest import (
@@ -2586,8 +2656,7 @@ def phase_entry_points(torch, dev, smi, tf):
         forest_gram_matrix, num_null_trees, route_forest,
     )
     from bark_tpu_torch.models import surrogate as surrogate_module
-    from bark_tpu_torch.ops import gram as gram_module
-    from bark_tpu_torch.ops.chol import chol_inv_cuda, chol_inv_plain
+    from bark_tpu_torch.ops.chol import chol_inv_cuda
     from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
     from bark_tpu_torch.optimizer import search
     from bark_tpu_torch.optimizer.acquisition import LR_THRESHOLD
@@ -2614,48 +2683,7 @@ def phase_entry_points(torch, dev, smi, tf):
         return result, rec
 
     def hold(path, rec):
-        """Each recorded shape's first launch against the plain version on the
-        same input (K1 exact; K2 |L - L_plain| / max |L_plain| <= 5e-4 and
-        |E L - I| <= 5e-4); each kernel's most launched shape on the path
-        timed."""
-        top = {k: max(v, key=v.get) for k, v in rec.shapes.items() if v}
-        for key, (l1, l2, m1, m2, nl) in rec.args["gram"].items():
-            l2 = l1 if l2 is None else l2
-            m2 = m1 if key[-1] == "sym" else m2
-            got = gram_module.gram_cuda(l1, l2, m1, m2, nl)
-            require(torch.equal(got, gram_plain(l1, l2, m1, m2)),
-                    f"K1 {key} of {path} equals its plain version")
-            name = f"({key[0]},{key[1]},{key[2]}){' sym' if key[-1] else ''} {path}"
-            if key == top.get("gram") and ("gram", key) not in held:
-                held.add(("gram", key))
-                t = time_k1(torch, gram_module, l1, l2, m1, m2, nl)
-                times[("gram", name)] = t
-                log(f"[K1] {name}: exact; device {t['device_ms']} ms ({t['device_source']}), "
-                    f"call {t['call_ms']:.5f}, plain {t['plain_ms']:.5f}; bf16 one-hot bmm "
-                    f"{t['library_ms']} ms device; bound {t['bound_ms']:.5f} ms "
-                    f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it, on {smi}")
-            else:
-                log(f"[K1] {name}: exact")
-        for key, a in rec.args["chol_inv"].items():
-            L, E = chol_inv_cuda(a)
-            Lp, _ = chol_inv_plain(a)
-            err = rel_err(torch, L, Lp)
-            resid = (E @ L - torch.eye(key[-1], device=dev)).abs().max().item()
-            name = f"({key[0]},{key[1]},{key[2]}) {path}"
-            require(err <= REL_BOUND and resid <= 5e-4,
-                    f"K2 {name}: |L - L_plain| / max |L_plain| = {err}, |E L - I| = {resid}")
-            if key == top.get("chol_inv") and ("chol_inv", key) not in held:
-                held.add(("chol_inv", key))
-                t = time_k2(torch, lambda: chol_inv_cuda(a), lambda: chol_inv_plain(a), key[0],
-                            key[1], "chol_inv_kernel")
-                times[("chol_inv", name)] = t
-                log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}; device "
-                    f"{t['device_ms']:.5f} ms ({t['device_source']}), call "
-                    f"{t['call_ms']:.5f}, plain {t['plain_ms']:.5f} call / {t['library_ms']} "
-                    f"device (cuSOLVER); bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
-                    f"{100 * t['share_of_bound']:.1f}% of it, on {smi}")
-            else:
-                log(f"[K2] {name}: |L-L_plain|/max|L| {err:.3e}, |EL-I| {resid:.3e}")
+        hold_recorded(torch, dev, smi, path, rec, times, held)
 
     # --- (a) the forest Gram API ------------------------------------------------------
     ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
@@ -2889,6 +2917,164 @@ def phase_entry_points(torch, dev, smi, tf):
     log(f"[phase 14 f] plot_bo_runs summary {summary_runs}")
     tmp.cleanup()
     log(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
+    return launches, times
+
+
+# --- phase 15: the headline benchmark's twin -------------------------------------
+BENCH_DEFAULT_RUNS = 1  # the default mode (N=50); three in a row before the cut in CUTS
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")  # root bench.py's line
+
+
+class _TimedWindow:
+    """Wraps the twin's ``run_bark_sampler`` for one ``measure``: sets the
+    kernels' counts to 0 just before the third call, the first timed one,
+    so that after ``measure`` they hold the timed window's launches; keeps
+    the arguments of the last call."""
+
+    def __init__(self, fn, kernels):
+        self.fn, self.kernels, self.calls, self.last = fn, kernels, 0, None
+
+    def __call__(self, *args):
+        if self.calls == 2:
+            for k in self.kernels:
+                k.launches = 0
+        self.calls += 1
+        self.last = args
+        return self.fn(*args)
+
+
+def phase_bench(torch, dev, smi):
+    """Phase 15: ``bark_tpu_torch/benchmarks/bench.py``, the twin of the root
+    ``bench.py``, at the reference's protocol on the points the slices of
+    phases 5-6 leave out. Returns the launches of each timed window and the
+    kernels' times at its shapes."""
+    import collections
+    import contextlib
+    import io
+    import math
+    import warnings
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bark_tpu_torch.benchmarks import bench
+    from bark_tpu_torch.ops.chol import chol_inv_cuda
+    from bark_tpu_torch.ops.gram import gram_cuda
+
+    t_phase = time.perf_counter()
+    launches, times, held, shapes = {}, {}, set(), {}
+    tpu = {(r["n_train"], r["cat_dim"]): r["value"] for r in json.loads(
+        (Path(__file__).resolve().parent / "BENCH_CURVE_r05.json").read_text())}
+
+    def drive(path, fn):
+        """One ``measure`` through ``fn``; the launches of its timed window,
+        the first input of each kernel shape held against the plain version."""
+        window = _TimedWindow(bench.run_bark_sampler, (gram_cuda, chol_inv_cuda))
+        gram_cuda.launches = chol_inv_cuda.launches = 0
+        bench.run_bark_sampler = window
+        try:
+            with KernelRecorder() as rec:
+                res = fn()
+        finally:
+            bench.run_bark_sampler = window.fn
+        counts = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+        require(window.calls == 7, f"{path}: 2 untimed and 5 timed sampler calls ({window.calls})")
+        value = res["value"]
+        require(all(isinstance(res[k], (int, float)) and math.isfinite(res[k]) and res[k] > 0
+                    for k in ("value", "vs_baseline")), f"{path}: finite positive values {res}")
+        require(res["metric"] == "forest_mcmc_steps_per_s_per_chip"
+                and res["unit"] == "steps/s/chip", f"{path}: the reference's names {res}")
+        n, cat = (int(path.split("N=")[1].split()[0]), 2 if path.endswith("cat") else 0)
+        log(f"[phase 15] {path}: {json.dumps(res)} | launches in the timed window {counts} | "
+            f"the TPU's value (BENCH_CURVE_r05.json, not this card's) "
+            f"{tpu[(n, cat)]} steps/s/chip | {value} steps/s/chip on {smi}")
+        if path in launches:
+            require(counts == launches[path], f"{path}: the same launches each run "
+                                              f"({counts} vs {launches[path]})")
+        launches[path] = counts
+        shapes[path] = {k: set(v) for k, v in rec.shapes.items()}
+        hold_recorded(torch, dev, smi, path, rec, times, held)
+        return res, window
+
+    def busy(path, window, res):
+        """The card's busy share at ``path``: the device kernels' summed
+        duration in one more call on the warm model under torch.profiler,
+        over the timed window's mean call (uninstrumented); then, in another
+        call under CUDA's sync debug mode, the host's synchronisations."""
+        _, model, *rest = window.last
+
+        def call(seed):
+            window.fn(torch.Generator(device=dev).manual_seed(seed), model, *rest)
+            torch.cuda.synchronize()
+
+        for attempt in range(1, 4):  # the profiler at times captures no kernel
+            torch.cuda.synchronize()
+            # the device's activity only: a call is ~3,300 kernels a step, and
+            # the host's op events would cost minutes to summarise
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                call(15)
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            # the raw events: key_averages() over ~170,000 kernels takes a
+            # minute; kernels only, not the copies and fills
+            durations = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                         if "CUDA" in str(e.device_type())
+                         and not e.name().startswith(("Memcpy", "Memset"))]
+            if durations:
+                break
+        require(bool(durations), f"{path}: the profiler captured the call's kernels")
+        kernel_ms = sum(durations) / 1e6
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call(16)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                    if "called a synchronizing" in str(w.message))
+        params, chains = rest[-1], model.noise.shape[0]
+        timed_ms = 1e3 * chains * params.num_samples * params.steps_per_sample / res["value"]
+        log(f"[phase 15] {path}: {len(durations)} device kernels, {kernel_ms:.1f} ms, in one "
+            f"call under torch.profiler (attempt {attempt}, {wall_ms:.1f} ms of wall time); "
+            f"over the timed window's mean call, {timed_ms:.1f} ms: busy "
+            f"{100 * kernel_ms / timed_ms:.1f}% on {smi}; host synchronisations inside "
+            f"another call (sync debug mode): {sum(syncs.values())} at {dict(syncs)}")
+
+    # the default mode: one line with exactly the reference's four keys
+    def default_mode():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench.main([])
+        lines = out.getvalue().splitlines()
+        require(len(lines) == 1 and tuple(json.loads(lines[0])) == BENCH_KEYS,
+                f"the default mode prints one line with exactly {BENCH_KEYS}: {lines}")
+        return json.loads(lines[0])
+
+    rates = []
+    for _ in range(BENCH_DEFAULT_RUNS):
+        res, window = drive("bench N=50", default_mode)
+        rates.append(res["value"])
+    log(f"[phase 15] default mode (N=50) x {BENCH_DEFAULT_RUNS} in a row: {rates}; median "
+        f"{statistics.median(rates)}, spread {min(rates)}-{max(rates)} steps/s/chip on {smi}")
+    busy("bench N=50", window, res)
+
+    drive("bench N=50 cat", lambda: bench.measure(n_train=50, cat_dim=2))
+    require(launches["bench N=50 cat"] == launches["bench N=50"]
+            and shapes["bench N=50 cat"] == shapes["bench N=50"],
+            f"the categorical run launches K1 and K2 as the continuous one: "
+            f"{launches['bench N=50 cat']} {shapes['bench N=50 cat']} vs "
+            f"{launches['bench N=50']} {shapes['bench N=50']}")
+    require(launches["bench N=50"]["gram"] == launches["bench N=50"]["chol_inv"] == 5 * 51,
+            f"N=50: one K1 and one K2 launch per init and step in the timed window "
+            f"{launches['bench N=50']}")
+
+    res, window = drive("bench N=512", lambda: bench.measure(n_train=512))
+    require(launches["bench N=512"] == {"gram": 0, "chol_inv": 5 * 51},
+            f"N=512, leaf tier at R=256: K2 once per init and step, K1 never "
+            f"{launches['bench N=512']}")
+    busy("bench N=512", window, res)
+    log(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
     return launches, times
 
 
@@ -3342,6 +3528,11 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 14. the forest Gram API and the last entry points ----------------------
     path_launches, path_times = phase_entry_points(torch, dev, smi, tf)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 15. the headline benchmark's twin ----------------------------------------
+    path_launches, path_times = phase_bench(torch, dev, smi)
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t
