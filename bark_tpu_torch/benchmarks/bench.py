@@ -96,15 +96,17 @@ def problem(n_train: int, cat_dim: int = 0, num_chains: int = 64,
 
 def measure(n_train: int, cat_dim: int = 0, num_chains: int = 64,
             steps_per_call: int = 50, n_calls: int = 5, device=None,
-            **sampler_overrides) -> dict:
+            untimed_calls: int = 2, **sampler_overrides) -> dict:
     """Steady-state full-MCMC steps/s/chip at one (N, domain) configuration.
 
-    Two untimed calls first, one from the empty forests and one on their
-    last sample, so the timed region is steady-state mixing; then
-    ``n_calls`` sampler calls between two device synchronisations, one
-    before the clock starts and one at the end (the calls queue on the
-    device as the reference's asynchronous dispatches do, except where the
-    sampler itself waits for the device).
+    Untimed calls first, one from the empty forests and (by default, as the
+    reference) one more on their last sample, so the timed region is
+    steady-state mixing; then ``n_calls`` sampler calls on that last sample
+    between two device synchronisations, one before the clock starts and
+    one at the end (the calls queue on the device as the reference's
+    asynchronous dispatches do, except where the sampler itself waits for
+    the device). ``sampler_overrides`` go to :class:`SamplerParams`, e.g.
+    a lowering (``scan_style="lowrank"``).
     """
     dev = _device(device)
     X, y_std, bounds, ft, params = problem(n_train, cat_dim, num_chains, steps_per_call,
@@ -129,7 +131,8 @@ def measure(n_train: int, cat_dim: int = 0, num_chains: int = 64,
         noise=samples.noise[:, -1],
         scale=samples.scale[:, -1],
     )
-    run(warm_model, 1)
+    for seed in range(1, untimed_calls):
+        run(warm_model, seed)
     _sync(dev)
 
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """Repeated runs of the headline benchmark, of this checkout and another, in turns.
 
     python -m bark_tpu_torch.benchmarks.bench_turns [--runs 10] [--tree DIR] \
-        [--points 50,200,512,1024,50c,2048,4096,8192] [--out FILE]
+        [--points 50,200,512,1024,50c,2048,4096,8192] [--protocol K=V,...] \
+        [--out FILE]
 
 An A/B tool for a change to the sampler, on the card. Each run is one
 process that calls :func:`bench.measure` (this checkout's
@@ -16,6 +17,12 @@ quartiles and extremes of the rate, the pairs this checkout won, the tier
 each point takes, the TPU's rate at that point from ``BENCH_CURVE_r05.json``
 (a TPU's, not this card's) and the card's ``nvidia-smi`` line before and
 after. Default output: ``results/port/bench/curve_xl.json``.
+
+A point may pin a lowering of the sampler after a colon, as ``SamplerParams``
+overrides separated by ``;`` (``512:scan_style=lowrank;refresh_style=pair``),
+so one checkout's lowerings run in turns with its default within each run;
+``--protocol`` gives ``measure``'s own arguments for every point
+(``steps_per_call=20,n_calls=1,untimed_calls=1`` for short readings).
 """
 
 from __future__ import annotations
@@ -49,14 +56,38 @@ print(json.dumps({"package": sys.modules["bark_tpu_torch"].__file__, "results": 
 """
 
 
+def _value(text: str):
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
+def _pairs(text: str, sep: str) -> dict:
+    """``"a=1;b=x"`` -> ``{"a": 1, "b": "x"}``."""
+    return {k: _value(v) for k, v in (kv.split("=", 1) for kv in text.split(sep) if kv)}
+
+
 def parse_points(text: str) -> list[dict]:
-    """``"50,200,50c"`` -> the configurations of ``bench.measure``."""
-    return [{"n_train": int(p.rstrip("c")), "cat_dim": 2 if p.endswith("c") else 0}
-            for p in text.split(",")]
+    """``"50,200,50c,512:scan_style=lowrank"`` -> the configurations of
+    ``bench.measure`` (N, the categorical variant, sampler overrides)."""
+    configs = []
+    for p in text.split(","):
+        point, _, overrides = p.partition(":")
+        configs.append({"n_train": int(point.rstrip("c")),
+                        "cat_dim": 2 if point.endswith("c") else 0, **_pairs(overrides, ";")})
+    return configs
+
+
+def _overrides(config: dict) -> dict:
+    return {k: v for k, v in config.items() if k not in ("n_train", "cat_dim")}
 
 
 def point_name(config: dict) -> str:
-    return f"N={config['n_train']}" + (" cat" if config["cat_dim"] else "")
+    return (f"N={config['n_train']}" + (" cat" if config["cat_dim"] else "")
+            + "".join(f" {k}={v}" for k, v in _overrides(config).items()))
 
 
 def nvidia_smi() -> str:
@@ -94,25 +125,32 @@ def spread(values: list[float]) -> dict:
             "q3": round(q3, 2), "min": min(values), "max": max(values)}
 
 
-def tier(n: int) -> dict:
-    """The lowering the sampler resolves for N and its leaf budget R."""
+def tier(n: int, **overrides) -> dict:
+    """The lowering the sampler resolves for N (and the sampler overrides)
+    and its leaf budget R."""
     from bark_tpu_torch.fitting.params import SamplerParams
     from bark_tpu_torch.fitting.sampler import _leaf_budget, _resolve_styles
 
-    params = _resolve_styles(SamplerParams(num_trees=50), n)
-    leaf = params.refresh_style == "leaf"
-    return {"tier": "leaf" if leaf else "dense", "scan": params.scan_style,
-            "refresh": params.refresh_style,
-            "leaf_budget": _leaf_budget(params, n) if leaf else None}
+    params = _resolve_styles(SamplerParams(num_trees=50, **overrides), n)
+    leaf = params.kernel_backend == "rank1" and params.refresh_style == "leaf"
+    out = {"tier": "leaf" if leaf else "dense", "scan": params.scan_style,
+           "refresh": params.refresh_style,
+           "leaf_budget": _leaf_budget(params, n) if leaf else None}
+    if overrides:
+        out.update(backend=params.kernel_backend, hot_style=params.hot_style,
+                   subspace_mode=params.subspace_mode)
+    return out
 
 
 def summarize(configs: list[dict], runs: list[dict], sides: list[str]) -> dict:
-    tpu = {point_name(r): r["value"] for r in json.loads(TPU_CURVE.read_text())}
+    tpu = {(r["n_train"], r["cat_dim"]): r["value"] for r in json.loads(TPU_CURVE.read_text())}
     points = {}
     for i, c in enumerate(configs):
         name = point_name(c)
         rates = {s: [run[s]["results"][i]["value"] for run in runs] for s in sides}
-        entry = {**tier(c["n_train"]), "tpu_value_bench_curve_r05": tpu.get(name),
+        # the TPU's rate is of its default lowering: none beside a pinned one
+        tpu_value = None if _overrides(c) else tpu.get((c["n_train"], c["cat_dim"]))
+        entry = {**tier(c["n_train"], **_overrides(c)), "tpu_value_bench_curve_r05": tpu_value,
                  **{s: spread(v) for s, v in rates.items()}}
         if len(sides) == 2:
             a, b = (rates[s] for s in sides)
@@ -128,9 +166,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--tree", default=None, help="another checkout to take turns with")
     ap.add_argument("--points", default=",".join(
         f"{c['n_train']}{'c' if c['cat_dim'] else ''}" for c in CURVE_XL))
+    ap.add_argument("--protocol", default="",
+                    help="measure's arguments for every point, e.g. steps_per_call=20,n_calls=1")
     ap.add_argument("--out", default=str(OUT))
     args = ap.parse_args(argv)
     configs = parse_points(args.points)
+    protocol = _pairs(args.protocol, ",")
     trees = {"this": REPO}
     if args.tree:
         trees["tree"] = pathlib.Path(args.tree).resolve()
@@ -145,7 +186,7 @@ def main(argv=None) -> dict:
         order = sides if i % 2 == 0 else sides[::-1]
         run = {"order": order}
         for side in order:
-            run[side] = run_side(trees[side], configs)
+            run[side] = run_side(trees[side], [{**c, **protocol} for c in configs])
             print(f"[bench_turns] run {i} {side} ({trees[side]}): {run[side]['seconds']} s; "
                   + ", ".join(f"{point_name(c)} {r['value']}"
                               for c, r in zip(configs, run[side]["results"])),
@@ -154,7 +195,8 @@ def main(argv=None) -> dict:
         # written after every run, so a run cut short keeps the runs before it
         payload = {
             "protocol": "bench.measure per point: 64 chains, 2 untimed calls, 5 timed "
-                        "calls of 50 steps, one synchronisation at the end",
+                        "calls of 50 steps, one synchronisation at the end"
+                        + (f"; but {args.protocol}" if protocol else ""),
             "trees": {s: os.path.relpath(p, REPO) for s, p in trees.items()},
             "nvidia_smi": [smi_before, nvidia_smi()],
             "points": summarize(configs, runs, sides),

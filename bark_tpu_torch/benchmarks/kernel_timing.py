@@ -56,11 +56,13 @@ def bound(bytes_: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple
 def k1_bound(b: int, n: int, mcols: int, m: int, symmetric: bool, masked: bool):
     """K1's bound: each distinct input read once (one leaves tensor and one
     mask for a symmetric call), the float32 Gram written once; N * M * m
-    compare-and-adds."""
+    compare-and-adds, or N (N + 1) / 2 * m for a symmetric call, whose
+    lower triangle is a mirror of the upper."""
     reads = b * n * m + (0 if symmetric else b * mcols * m)
     if masked:
         reads += n + (0 if symmetric else mcols)
-    return bound(4.0 * (reads + b * n * mcols), 2.0 * b * n * mcols * m)
+    pairs = n * (n + 1) / 2 if symmetric else n * mcols
+    return bound(4.0 * (reads + b * n * mcols), 2.0 * b * pairs * m)
 
 
 def k2_bound(b: int, n: int):

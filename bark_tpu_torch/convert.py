@@ -66,15 +66,18 @@ def model_from_reference(model, device=None) -> BARKModel:
 
 
 def chain_state_from_reference(state, device=None) -> ChainState:
-    """A reference ChainState of either tier or of the chol backend (the
-    subspace placeholder is not read).
+    """A reference ChainState of any lowering.
 
-    Dense tier: its KernState carries K_inv and K_logdet. Leaf tier: K_inv
-    is a zero-size placeholder and the K slot holds the factor L of A, the
-    port's ``KernState.L`` (a dict may name it ``K`` or ``L``; without a
-    non-empty ``K_inv`` it reads as the leaf tier). Chol backend: K_inv and
-    K_logdet are both zero-size placeholders and the K slot holds the
-    kernel matrix, the port's ``KernState.K``.
+    The dense refreshes and the woodbury backend: its KernState carries
+    K_inv and K_logdet. The leaf tier and the ``factor`` refresh: K_inv is
+    a zero-size placeholder and the K slot holds a Cholesky factor (of A in
+    the leaf tier, of K under factor), the port's ``KernState.L`` (a dict
+    may name it ``K`` or ``L``; without a non-empty ``K_inv`` it reads as a
+    factor). Chol backend: K_inv and K_logdet are both zero-size
+    placeholders and the K slot holds the kernel matrix, the port's
+    ``KernState.K``. The subspaces (``subspace_mode="carry"``) become
+    ``ChainState.subspaces``; the reference's zero-size placeholder under
+    "walk" (or a missing field) becomes None.
     """
     f32 = torch.float32
     kern = _get(state, "kern")
@@ -90,6 +93,8 @@ def chain_state_from_reference(state, device=None) -> ChainState:
         L = fields["L"] if "L" in fields else fields["K"]
         kern = KernState(K_inv=None, K_logdet=_tensor(fields["K_logdet"], f32, device),
                          L=_tensor(L, f32, device))
+    has_subs = "subspaces" in state if isinstance(state, dict) else hasattr(state, "subspaces")
+    subs = np.asarray(_get(state, "subspaces")) if has_subs else None
     return ChainState(
         forest=forest_from_reference(_get(state, "forest"), device),
         leaves=_tensor(_get(state, "leaves"), torch.int32, device),
@@ -97,6 +102,7 @@ def chain_state_from_reference(state, device=None) -> ChainState:
         scale=_tensor(_get(state, "scale"), f32, device),
         kern=kern,
         mll=_tensor(_get(state, "mll"), f32, device),
+        subspaces=None if subs is None or not subs.size else _tensor(subs, f32, device),
     )
 
 

@@ -4,10 +4,11 @@ The port carries its own copy because importing anything from ``bark_tpu``
 imports JAX. Fields, defaults, validation and ``proposal_weights`` are
 identical (held equal by ``tests/test_torch_forest.py``), so
 ``SamplerParams(**dataclasses.asdict(reference_params))`` rebuilds a
-reference instance here. The lowering knobs (``scan_style``,
-``refresh_style``, ``hot_style``, ...) are validated the same way; the
-port's sampler accepts only the shipped dense-tier defaults and raises on
-the rest (``fitting.sampler._resolve_styles``).
+reference instance here. The lowering knobs (``kernel_backend``,
+``scan_style``, ``refresh_style``, ``hot_style``, ``subspace_mode``, ...)
+are validated the same way, and the port's sampler runs every value
+(``fitting.sampler``; ``_resolve_styles`` resolves ``auto`` by padded N as
+the reference does).
 """
 
 from __future__ import annotations
@@ -48,9 +49,23 @@ class SamplerParams:
     node_limit: int = DEFAULT_NODE_LIMIT
     max_depth: int = DEFAULT_MAX_DEPTH
 
-    # lowering choices of the reference (see bark_tpu/fitting/params.py for
-    # what each one is); the port runs rank1 + plain scan + onesolve refresh
-    # + walk_select proposals + walk subspaces
+    # the lowering (fitting/sampler.py describes each one):
+    #   kernel_backend: "rank1" (rank-2 updates of a carry refreshed exactly
+    #     once a step), "chol" (K itself, factored every move; the
+    #     drift-free oracle), "woodbury" (rank-L updates of K^-1 by the
+    #     moved tree's leaf indicators, the original BARK algorithm);
+    #   subspace_mode: "walk" (the chosen node's subspace by its parent
+    #     chain) or "carry" (every node's subspace kept in the state);
+    #   hot_style: the proposal batch's lowering, "walk_select", "scatter",
+    #     "select" or "doubling" (the same proposals bit for bit);
+    #   refresh_style: "auto", "pair", "batched", "onesolve", "factor" or
+    #     "leaf" (factor and leaf need the coeff scan);
+    #   scan_style: "auto", "plain", "aug", "lowrank" or "coeff";
+    #   leaf_budget: the leaf tier's slot count R (0: by padded N).
+    # scan_unroll, chol_block, chol_impl and gram_dtype choose among the
+    # reference's XLA lowerings of the same arithmetic; they are validated
+    # and not read (K1's counts are exact for either one-hot dtype, K2
+    # factors any block, the move loop is a Python loop).
     kernel_backend: str = "rank1"
     subspace_mode: str = "walk"
     hot_style: str = "walk_select"

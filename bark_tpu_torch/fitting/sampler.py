@@ -1,9 +1,9 @@
 """The BARK forest-MCMC transition kernel and multi-chain sampler.
 
-Counterpart of ``bark_tpu/fitting/sampler.py`` with the shipped default
-lowering (``kernel_backend="rank1"``, ``hot_style="walk_select"``,
-``subspace_mode="walk"``) in both of its tiers, which ``_resolve_styles``
-picks by padded N as the reference does:
+Counterpart of ``bark_tpu/fitting/sampler.py``: every lowering the
+reference's :class:`SamplerParams` selects runs here, each as its own code,
+and ``_resolve_styles`` resolves ``auto`` by padded N as the reference does.
+The shipped default (``kernel_backend="rank1"``) has two tiers:
 
   - the dense tier (N < 256: ``scan_style="plain"``,
     ``refresh_style="onesolve"``) carries K^-1 (N, N);
@@ -13,16 +13,47 @@ picks by padded N as the reference does:
     compact leaf indicator of the forest (``K = gamma Z Z^T + nu I``,
     nu = jitter + noise, gamma = scale/m) and R the leaf budget.
 
-Beside them, ``kernel_backend="chol"`` is the reference's drift-free
-oracle at any N: it carries K (C, N, N) itself, adds each move's exact
-kernel delta and factors K by K2 (through ``blocked_cholesky``) once per
-move and once for the noise move. It is slow, and it is what the shipped
-tiers are judged against at stationarity
-(``bark_tpu_torch/benchmarks/stationary.py``).
+The other rank1 lowerings, each pinned by ``scan_style``/``refresh_style``:
+
+  - move scans: ``aug`` carries [K^-1 | K^-1 y] (N, N+1) so one product
+    updates both; ``lowrank`` never writes K^-1 in the loop, it keeps the
+    accepted corrections as factors P, Q (N, 2m) against the step's K0^-1,
+    with the base products K0^-1 W of all m moves in one product before the
+    loop; ``coeff`` runs the loop on (2m, 2m) tensors, hoisting its
+    N-sized products from K^-1 (dense refreshes), from the carried factor L
+    of K (``factor``, one lower solve with 2m + 1 right-hand sides) or from
+    the leaf-space factor (``leaf``);
+  - refreshes: ``pair`` (two factorizations with inverse, one per MH branch
+    of the noise move), ``batched`` (both in one), ``onesolve`` (both
+    factored at once, MLLs from the factors, K^-1 from the selected
+    branch's inverse factor), ``factor`` (as onesolve, carrying L of K
+    instead of K^-1) and ``leaf``.
+
+Beside rank1, ``kernel_backend="chol"`` is the drift-free oracle (it
+carries K itself, adds each move's exact delta and factors K once per
+move), and ``kernel_backend="woodbury"`` is the original BARK algorithm:
+each move is two rank-L updates of K^-1, by the compact one-hot leaf
+indicators of the tree before and after the move (L = node_limit // 2),
+each through a Cholesky of the (L, L) capacitance, with the MLL from K^-1
+per move, and a full rebuild of K at the noise move.
+
+On the proposal side, ``hot_style`` picks the lowering of the proposal
+batch (:mod:`.proposals`) and ``subspace_mode="carry"`` keeps every node's
+subspace in the state (``ChainState.subspaces``) instead of walking the
+parent chain; all give the same proposals bit for bit.
+
+Every factorization goes through the Cholesky-with-inverse kernel K2
+(``ops.chol``, through ``ops.linalg.blocked_cholesky``/``chol_inv``), and
+every Gram through the agreement kernel K1 (``ops.gram``). The reference's
+``gram_dtype``, ``chol_block``, ``chol_impl`` and ``scan_unroll`` choose
+among XLA lowerings of the same arithmetic; they are accepted and not read
+here: K1's counts are exact whatever the one-hot dtype, K2 factors any
+block, and the move loop is a Python loop.
 
 Every tensor carries a leading chain dimension (the reference ``vmap``-ed
 over chains) and the sequential move scan is a Python loop over the m
-trees, all chains in lockstep.
+trees, all chains in lockstep. The float dtype follows ``y``: float32 on
+the card (the kernels are float32), float64 on the CPU for tests.
 
 One step (:func:`step`):
 
@@ -30,18 +61,12 @@ One step (:func:`step`):
   2. the hoisted proposal batch: one grow/prune/change proposal for every
      (chain, tree) at once, with the incremental leaf update of each
      (proposals only touch terminal or singly-internal nodes);
-  3. the move scan, an MH accept per tree on the MLL ratio, seeded from the
-     scan's own quantities. Dense tier: a rank-2 Woodbury update of the
-     carried K^-1 per move (the move's kernel delta is exactly rank 2).
-     Leaf tier: the same Woodbury algebra in the span of the m moves'
-     update vectors, on (2m, 2m) tensors, with the leaf-capacity guard;
-  4. the exact refresh: both MH branches of the noise move factored at once
-     by the Cholesky-with-inverse kernel K2 (``ops.chol`` through
-     ``ops.linalg.blocked_cholesky``), both MLLs from the factors, and the
-     accept. Dense tier: of the kernel matrices built from the agreement
-     Gram (kernel K1, ``ops.gram``), carrying K^-1 = E^T E from the selected
-     branch's inverse factor E. Leaf tier: of the two A, carrying the
-     selected branch's factor.
+  3. the move scan, an MH accept per tree on the MLL ratio. The rank1 scans
+     seed it from their own quantities (the reference measured a posterior
+     bias when seeding from the refresh's MLL); the chol and woodbury
+     backends from ``state.mll``, as in the reference;
+  4. the refresh (rank1) or the noise move's rebuild (chol, woodbury), and
+     the noise move's accept.
 
 All randomness of a step is one :class:`StepDraws` record (made by
 :func:`draw_step` from a ``torch.Generator``), so a step is a pure function
@@ -50,7 +75,7 @@ of (state, draws) -- the seam the parity tests use to replay the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -63,6 +88,7 @@ from bark_tpu_torch.fitting.proposals import (
     make_proposal_noise,
     propose_tree_packed,
 )
+from bark_tpu_torch.fitting.traversal import all_node_subspaces
 from bark_tpu_torch.forest import (
     FEAT_CAT,
     Forest,
@@ -74,6 +100,7 @@ from bark_tpu_torch.forest import (
     route_forest,
     unpack_forest,
 )
+from bark_tpu_torch.ops.chol import chol_inv
 from bark_tpu_torch.ops.linalg import (
     JITTER,
     blocked_cholesky,
@@ -82,12 +109,6 @@ from bark_tpu_torch.ops.linalg import (
     kernel_matrix,
     masked_mll,
 )
-
-#: the lowerings the port runs: the dense tier and the leaf tier
-_TIERS = (("plain", "onesolve"), ("coeff", "leaf"))
-#: the kernel backends: the shipped one and the drift-free oracle
-_BACKENDS = ("rank1", "chol")
-_SHIPPED = {"hot_style": "walk_select", "subspace_mode": "walk"}
 
 
 def _leaf_budget(params: SamplerParams, n: int) -> int:
@@ -113,35 +134,17 @@ def _leaf_budget(params: SamplerParams, n: int) -> int:
 
 
 def _resolve_styles(params: SamplerParams, n: int) -> SamplerParams:
-    """Resolve the lowering for padded N exactly as the reference does.
+    """Resolve the lowering for padded N, line for line as the reference.
 
-    ``auto`` resolves to the leaf tier (coeff scan + leaf refresh) at
-    N >= 256 and to the dense tier (plain scan + onesolve refresh) below;
-    an explicit ``refresh_style="leaf"`` or ``scan_style="coeff"`` selects
-    the leaf tier at any N, an explicit ``scan_style="plain"`` the dense
-    tier at any N. The port runs those two lowerings with the shipped
-    proposal and backend defaults, and raises ``NotImplementedError`` for
-    every other one rather than run something else. ``chol_block``/
-    ``chol_impl``/``gram_dtype``/``scan_unroll`` choose among the
-    reference's lowerings of the same arithmetic; the port has one lowering
-    for each (kernels K1 and K2, a Python loop) and does not read them.
-
-    ``kernel_backend="chol"`` returns the params unchanged: the scan and
-    refresh styles do not apply to it (as in the reference). The
-    ``woodbury`` backend raises.
+    Only the rank1 backend has scan and refresh styles; the others come
+    back unchanged. A refresh ``auto`` is ``leaf`` at N >= 256 unless the
+    scan is pinned to something other than ``coeff`` (an explicit pin is
+    never overridden), else ``onesolve``. The ``factor`` and ``leaf``
+    refreshes take the coeff scan (the only scan that reads the kernel
+    through symmetric products); otherwise a scan ``auto`` is ``coeff`` at
+    N >= 1024, ``lowrank`` from 256 and ``plain`` below. Idempotent.
     """
-    for name, value in _SHIPPED.items():
-        if getattr(params, name) != value:
-            raise NotImplementedError(
-                f"SamplerParams.{name}={getattr(params, name)!r}: the port "
-                f"runs only {value!r} (the shipped default)"
-            )
-    if params.kernel_backend not in _BACKENDS:
-        raise NotImplementedError(
-            f"SamplerParams.kernel_backend={params.kernel_backend!r}: the port "
-            f"runs only {_BACKENDS}"
-        )
-    if params.kernel_backend == "chol":
+    if params.kernel_backend != "rank1":
         return params
     scan, refresh = params.scan_style, params.refresh_style
     if refresh == "auto":
@@ -150,11 +153,6 @@ def _resolve_styles(params: SamplerParams, n: int) -> SamplerParams:
         scan = "coeff"
     elif scan == "auto":
         scan = "coeff" if n >= 1024 else ("lowrank" if n >= 256 else "plain")
-    if (scan, refresh) not in _TIERS:
-        raise NotImplementedError(
-            f"padded N={n} resolves to scan_style={scan!r}, refresh_style="
-            f"{refresh!r}: the port runs only {_TIERS}"
-        )
     if (scan, refresh) == (params.scan_style, params.refresh_style):
         return params
     return params.with_(scan_style=scan, refresh_style=refresh)
@@ -213,13 +211,17 @@ def _leaf_factor_mll(
 
 
 class KernState(NamedTuple):
-    """Kernel carry: logdet K (C,) and the tier's factor of K.
+    """Kernel carry: logdet K (C,) and the lowering's factor of K.
 
-    Dense tier: ``K_inv`` (C, N, N), ``L`` None. Leaf tier: ``L`` (C, R, R),
-    the Cholesky factor of A = (nu/gamma) I + Z^T Z, ``K_inv`` None. The
-    chol backend carries the kernel matrix itself, ``K`` (C, N, N), and
-    nothing else (``K_inv``, ``K_logdet`` and ``L`` None): every move
-    factors it afresh.
+    - ``K_inv`` (C, N, N), ``L`` None: the dense rank1 refreshes (``pair``,
+      ``batched``, ``onesolve``) and the woodbury backend;
+    - ``L`` (C, R, R), ``K_inv`` None: the leaf tier, the Cholesky factor
+      of A = (nu/gamma) I + Z^T Z;
+    - ``L`` (C, N, N), ``K_inv`` None: the ``factor`` refresh, the Cholesky
+      factor of K itself (the slot holds an (N, N) factor here and an
+      (R, R) one in the leaf tier; ``refresh_style`` says which);
+    - ``K`` (C, N, N) alone (``K_inv``, ``K_logdet`` and ``L`` None): the
+      chol backend, the kernel matrix, factored afresh at every move.
     """
 
     K_inv: torch.Tensor | None
@@ -238,21 +240,27 @@ class ChainState(NamedTuple):
     scale: torch.Tensor  # (C,) float32
     kern: KernState
     mll: torch.Tensor  # (C,) float32
+    # every node's subspace (C, m, node_limit, D, 2) under
+    # subspace_mode="carry"; None under "walk", where a proposal walks the
+    # chosen node's parent chain
+    subspaces: torch.Tensor | None = None
 
     def to(self, device) -> "ChainState":
         return ChainState(
             self.forest.to(device), self.leaves.to(device), self.noise.to(device),
             self.scale.to(device), self.kern.to(device), self.mll.to(device),
+            None if self.subspaces is None else self.subspaces.to(device),
         )
 
     def take(self, rows: torch.Tensor) -> "ChainState":
         """The chain rows ``rows`` (an index tensor) of every field, the
-        kernel carry included."""
+        kernel carry and the subspaces included."""
         return ChainState(
             Forest(*(t[rows] for t in self.forest)), self.leaves[rows],
             self.noise[rows], self.scale[rows],
             KernState(*(None if t is None else t[rows] for t in self.kern)),
             self.mll[rows],
+            None if self.subspaces is None else self.subspaces[rows],
         )
 
 
@@ -364,14 +372,20 @@ def _chol_mll(
 def _leaf_agreement(leaves_j: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(C, N, N) 0/1 matrix of the rows sharing a leaf of one tree, from its
     leaves (C, N); padded rows and columns masked out."""
-    eq = (leaves_j[:, :, None] == leaves_j[:, None, :]).to(torch.float32)
+    eq = (leaves_j[:, :, None] == leaves_j[:, None, :]).to(mask.dtype)
     return eq * (mask[:, None] * mask[None, :])
 
 
-def _default_mask(X: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+def _default_mask(X: torch.Tensor, mask: torch.Tensor | None, dtype) -> torch.Tensor:
     if mask is None:
-        return torch.ones(X.shape[0], dtype=torch.float32, device=X.device)
-    return mask.to(torch.float32)
+        return torch.ones(X.shape[0], dtype=dtype, device=X.device)
+    return mask.to(dtype)
+
+
+def _gram(leaves, mask, params):
+    """The masked agreement Gram (C, N, N) of the leaves (kernel K1), in
+    the mask's float dtype."""
+    return gram_from_leaves(leaves, leaves, mask, mask, params.node_limit).to(mask.dtype)
 
 
 def init_chain_state(
@@ -389,15 +403,15 @@ def init_chain_state(
 
     ``forest`` fields are (C, m, node_limit); ``noise``/``scale`` (C,) (or
     scalars, broadcast); ``X`` (N, D), ``y`` (N,), ``mask`` (N,) marks real
-    rows (padded rows are inert). Dense tier: the Gram goes through K1, the
-    factorization of K through K2. Leaf tier: the factorization of A
-    through K2, and no (N, N) object is built; an initial forest with more
-    leaves than the budget R cannot be packed, and its chain's MLL is NaN,
-    as in the reference, so its noise moves reject and the fault shows in
-    the outputs (the move scan's capacity guard lets only moves that do not
-    raise the total through, and the MLL stays NaN while it exceeds R).
-    The chol backend builds K from the Gram (K1) and takes the MLL from its
-    factor (K2).
+    rows (padded rows are inert). The carry follows the lowering (see
+    :class:`KernState`): K^-1 and logdet K from the Gram (K1) and a
+    factorization (K2) for the dense refreshes and the woodbury backend;
+    the factor L of K for ``factor``; the factor of A, with no (N, N)
+    object, in the leaf tier, where an initial forest with more leaves than
+    the budget R cannot be packed and its chain's MLL is NaN, as in the
+    reference, so its noise moves reject and the fault shows in the
+    outputs; K itself for chol. Under ``subspace_mode="carry"`` every
+    node's subspace is computed once here.
     """
     if bounds is None:
         raise ValueError("init_chain_state requires the domain bounds array")
@@ -410,32 +424,40 @@ def init_chain_state(
             f"node_limit={params.node_limit})"
         )
     (c,) = forest.batch_shape
-    mask = _default_mask(X, mask)
+    dtype = y.dtype
+    mask = _default_mask(X, mask, dtype)
     pad_count = X.shape[0] - mask.sum()
-    noise = torch.as_tensor(noise, dtype=torch.float32, device=X.device).expand(c).clone()
-    scale = torch.as_tensor(scale, dtype=torch.float32, device=X.device).expand(c).clone()
+    noise = torch.as_tensor(noise, dtype=dtype, device=X.device).expand(c).clone()
+    scale = torch.as_tensor(scale, dtype=dtype, device=X.device).expand(c).clone()
     leaves = route_forest(forest, X, feat_types, params.max_depth)
+    y_flat = y.reshape(-1)
+    subspaces = None
+    if params.subspace_mode == "carry":
+        subspaces = all_node_subspaces(forest, bounds, feat_types, params.max_depth)
     if params.kernel_backend == "chol":
-        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
-        K = kernel_matrix(gram, noise, scale)
-        mll, _ = _chol_mll(blocked_cholesky(K)[0], y.reshape(-1), noise, pad_count)
+        K = kernel_matrix(_gram(leaves, mask, params), noise, scale)
+        mll, _ = _chol_mll(blocked_cholesky(K)[0], y_flat, noise, pad_count)
         kern = KernState(K_inv=None, K_logdet=None, K=K)
-    elif params.refresh_style == "leaf":
+    elif params.kernel_backend == "rank1" and params.refresh_style == "leaf":
         budget = _leaf_budget(params, X.shape[0])
         Z, total = _leaf_Z(forest, leaves, budget, mask)
         L, K_logdet, mll = _leaf_factor_mll(
-            Z, Z.transpose(1, 2) @ Z, y.reshape(-1), (JITTER + noise)[:, None],
+            Z, Z.transpose(1, 2) @ Z, y_flat, (JITTER + noise)[:, None],
             (scale / params.num_trees)[:, None], pad_count,
         )
         mll = torch.where(total <= budget, mll[:, 0], torch.nan)
         kern = KernState(K_inv=None, K_logdet=K_logdet[:, 0], L=L[:, 0])
+    elif params.kernel_backend == "rank1" and params.refresh_style == "factor":
+        L, _ = blocked_cholesky(kernel_matrix(_gram(leaves, mask, params), noise, scale))
+        mll, K_logdet = _chol_mll(L, y_flat, noise, pad_count)
+        kern = KernState(K_inv=None, K_logdet=K_logdet, L=L)
     else:
-        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
-        K_inv, K_logdet = chol_inv_logdet(kernel_matrix(gram, noise, scale))
+        K_inv, K_logdet = chol_inv_logdet(kernel_matrix(_gram(leaves, mask, params), noise, scale))
         mll = masked_mll(K_inv, K_logdet, y, noise, pad_count)
         kern = KernState(K_inv=K_inv, K_logdet=K_logdet)
     return ChainState(
         forest=forest, leaves=leaves, noise=noise, scale=scale, kern=kern, mll=mll,
+        subspaces=subspaces,
     )
 
 
@@ -451,18 +473,38 @@ class _ProposalBatch(NamedTuple):
     move: torch.Tensor  # (C, m)
     node: torch.Tensor  # (C, m)
     u_accept: torch.Tensor  # (C, m)
+    new_subs: torch.Tensor | None  # (C, m, node_limit, D, 2) under "carry"
 
 
 def _propose_all_trees(state, X, feat_types, bounds, params, noise):
-    """The hoisted proposal batch over all chains and trees."""
+    """The hoisted proposal batch over all chains and trees.
+
+    ``params.subspace_mode`` picks the walk or the carry, as the reference
+    does; a state whose ``subspaces`` do not match the mode (None under
+    "walk", a tensor under "carry") raises ValueError."""
+    carry_subs = params.subspace_mode == "carry"
+    if carry_subs != (state.subspaces is not None):
+        raise ValueError(
+            f"subspace_mode={params.subspace_mode!r} needs a state "
+            f"{'with' if carry_subs else 'without'} carried subspaces; build it "
+            "with init_chain_state under the same params"
+        )
     c, m, node_limit = state.forest.is_leaf.shape
     n = X.shape[0]
     packed0 = pack_forest(state.forest)  # (C, m, node_limit, 8)
     flat = packed0.reshape(c * m, node_limit, 8)
     flat_noise = ProposalNoise(*(t.reshape(c * m, *t.shape[2:]) for t in noise))
-    new_packed, log_q_prior, move, node = propose_tree_packed(
-        flat, bounds, feat_types, params, flat_noise
-    )
+    new_subs = None
+    if not carry_subs:
+        new_packed, log_q_prior, move, node = propose_tree_packed(
+            flat, bounds, feat_types, params, flat_noise
+        )
+    else:
+        subs = state.subspaces.reshape(c * m, *state.subspaces.shape[2:])
+        new_packed, new_subs, log_q_prior, move, node = propose_tree_packed(
+            flat, bounds, feat_types, params, flat_noise, subspace_tree=subs
+        )
+        new_subs = new_subs.reshape(state.subspaces.shape)
     rows = torch.arange(c * m, device=X.device)
     nodes = node.long()
     cur_leavesT = state.leaves.transpose(1, 2).reshape(c * m, n)
@@ -478,15 +520,20 @@ def _propose_all_trees(state, X, feat_types, bounds, params, noise):
         move=move.reshape(c, m),
         node=node.reshape(c, m),
         u_accept=noise.u_accept,
+        new_subs=new_subs,
     )
     return packed0, batch
 
 
-def _merge_accepted(packed0, batch, accepts):
-    """Select the accepted per-tree state after the move scan."""
+def _merge_accepted(packed0, state, batch, accepts):
+    """Select the accepted per-tree state after the move scan: the forest,
+    the leaves (C, N, m) and the carried subspaces (None under "walk")."""
     packed = torch.where(accepts[..., None, None], batch.new_packed, packed0)
     leavesT = torch.where(accepts[..., None], batch.new_leavesT, batch.cur_leavesT)
-    return unpack_forest(packed), leavesT.transpose(1, 2).contiguous()
+    subs = state.subspaces
+    if subs is not None:
+        subs = torch.where(accepts[..., None, None, None], batch.new_subs, subs)
+    return unpack_forest(packed), leavesT.transpose(1, 2).contiguous(), subs
 
 
 def _update_patterns(packed0, batch, mask):
@@ -511,7 +558,7 @@ def _update_patterns(packed0, batch, mask):
     node_col = batch.node[..., None]
 
     def ind(lv, i):
-        return (lv == i).to(torch.float32)
+        return (lv == i).to(mask.dtype)
 
     new_lT, cur_lT = batch.new_leavesT, batch.cur_leavesT
     w_add = torch.where(is_prune, ind(new_lT, node_col), ind(new_lT, a_l) - ind(new_lT, a_r))
@@ -545,70 +592,279 @@ def _capacitance_inverse(G):
     return Minv, detM, denom2
 
 
-def _tree_moves_rank1(
-    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
-):
-    """m tree moves with rank-2 Woodbury maintenance of K^-1 (plain scan).
+def _accept(log_q_prior, beta, new_mll, cur_mll, log_u, zero):
+    """One MH accept per chain: ``(accept, log_alpha)``, only the MLL
+    difference tempered by ``beta``."""
+    log_alpha = log_q_prior + _tempered(beta, new_mll - cur_mll)
+    return log_u <= torch.minimum(log_alpha, zero), log_alpha
 
-    Per move, with W the scaled update patterns (:func:`_update_patterns`):
-    V = K^-1 W, the 2x2 capacitance M, and K^-1, logdet K, K^-1 y and
-    y^T K^-1 y updated in O(N^2). A ``denom <= eps`` guard turns round-off
-    broken updates into rejections.
 
-    The scan's starting MLL comes from the scan's own quantities (K^-1 y
-    and logdet of the carried state), not from ``state.mll``, so every MH
-    ratio compares two values of one program (the reference measured a
-    posterior bias when it seeded from the refresh's MLL).
+def _scan_seed(quad, K_logdet, mll_corr):
+    """A rank1 scan's starting MLL from its own quadratic and logdet, not
+    ``state.mll``: every MH ratio then compares two values of one program
+    (the reference measured a posterior bias when it seeded from the
+    refresh's MLL)."""
+    return 0.5 * (-quad - K_logdet + mll_corr)
 
-    Returns (forest, leaves, accepts (C, m), log_alpha (C, m)); the
-    refresh rebuilds K^-1 exactly, so the scan's own carry is dropped.
+
+def _rank2_terms(G, t, quad, K_logdet, mll_corr, eps=1e-6):
+    """What every rank-2 move needs from G = W^T K^-1 W (C, 2, 2) and
+    t = W^T K^-1 y (C, 2): ``(Minv, u = Minv t, quad', logdet', mll')``,
+    the proposal's MLL -inf where round-off broke the update (denom2 <=
+    eps), which rejects it."""
+    Minv, detM, denom2 = _capacitance_inverse(G)
+    K_logdet2 = K_logdet + torch.log(-detM)
+    u = (Minv @ t[..., None])[..., 0]
+    quad2 = quad - (t * u).sum(-1)
+    new_mll = 0.5 * (-quad2 - K_logdet2 + mll_corr)
+    new_mll = torch.where(denom2 > eps, new_mll, -torch.inf)
+    return Minv, u, quad2, K_logdet2, new_mll
+
+
+class _MoveBook:
+    """The accepted per-chain quantities every rank1 move scan keeps, seeded
+    from the scan's own quadratic and logdet (:func:`_scan_seed`): logdet
+    K, y^T K^-1 y, the current MLL, and each move's accept and log alpha.
+    A scan computes a move's G and t from its own carry, calls
+    :meth:`move`, and updates that carry where the move was accepted."""
+
+    def __init__(self, batch, beta, quad, K_logdet, mll_corr):
+        self.log_q_prior, self.beta, self.mll_corr = batch.log_q_prior, beta, mll_corr
+        self.quad, self.K_logdet = quad, K_logdet
+        self.cur_mll = _scan_seed(quad, K_logdet, mll_corr)
+        self.log_u = torch.log(batch.u_accept)
+        self.zero = torch.zeros_like(self.cur_mll)
+        self.accepts, self.log_alphas = [], []
+
+    def move(self, j, G, t, veto=None):
+        """Move j from G = W^T K^-1 W and t = W^T K^-1 y: ``(accept (C,),
+        Minv, u)``, its proposal's MLL -inf where ``veto``."""
+        Minv, u, quad2, K_logdet2, new_mll = _rank2_terms(
+            G, t, self.quad, self.K_logdet, self.mll_corr
+        )
+        if veto is not None:
+            new_mll = torch.where(veto, -torch.inf, new_mll)
+        acc, log_alpha = _accept(self.log_q_prior[:, j], self.beta, new_mll, self.cur_mll,
+                                 self.log_u[:, j], self.zero)
+        self.K_logdet = torch.where(acc, K_logdet2, self.K_logdet)
+        self.quad = torch.where(acc, quad2, self.quad)
+        self.cur_mll = torch.where(acc, new_mll, self.cur_mll)
+        self.accepts.append(acc)
+        self.log_alphas.append(log_alpha)
+        return acc, Minv, u
+
+
+def _scan_scales(state, pad_count, params):
+    """``(h, mll_corr)``: the patterns' scale sqrt(scale/2m) (C,) and the
+    pads' log-det correction of the MLL (C,)."""
+    h = torch.sqrt(state.scale / (2.0 * params.num_trees))
+    return h, pad_count * torch.log(JITTER + state.noise)
+
+
+def _scan_plain(state, batch, W_pat, y, mask, pad_count, params, beta):
+    """``scan_style="plain"``: rank-2 Woodbury updates of the carried K^-1.
+
+    Per move, with W the scaled update patterns: V = K^-1 W, the 2x2
+    capacitance M, and K^-1, logdet K, K^-1 y and y^T K^-1 y updated in
+    O(N^2).
     """
-    m = params.num_trees
-    half_s_over_m = torch.sqrt(state.scale / (2.0 * m))  # (C,)
-    eps = 1e-6
-    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
-    W_all = half_s_over_m[:, None, None, None] * _update_patterns(packed0, batch, mask)
-
-    y_flat = y.reshape(-1)
-    mll_corr = pad_count * torch.log(JITTER + state.noise)
-    K_inv, K_logdet = state.kern.K_inv, state.kern.K_logdet
-    v_y = K_inv @ y_flat  # (C, N)
-    quad = v_y @ y_flat  # (C,)
-    cur_mll = 0.5 * (-quad - K_logdet + mll_corr)  # scan-consistent seed
-    log_u = torch.log(batch.u_accept)
-    zero = torch.zeros_like(cur_mll)
-
-    accepts, log_alphas = [], []
-    for j in range(m):
+    h, mll_corr = _scan_scales(state, pad_count, params)
+    W_all = h[:, None, None, None] * W_pat
+    K_inv = state.kern.K_inv
+    v_y = K_inv @ y  # (C, N)
+    book = _MoveBook(batch, beta, v_y @ y, state.kern.K_logdet, mll_corr)
+    for j in range(params.num_trees):
         W = W_all[:, j]  # (C, N, 2)
         Wt = W.transpose(-1, -2)
         V = K_inv @ W  # (C, N, 2)
-        G = Wt @ V  # (C, 2, 2)
-        t = (Wt @ v_y[..., None])[..., 0]  # (C, 2)
-        Minv, detM, denom2 = _capacitance_inverse(G)
-        P = V @ Minv
-        K_inv2 = K_inv - P @ V.transpose(-1, -2)
-        K_logdet2 = K_logdet + torch.log(-detM)
-        u = (Minv @ t[..., None])[..., 0]
-        v_y2 = v_y - (V @ u[..., None])[..., 0]
-        quad2 = quad - (t * u).sum(-1)
+        acc, Minv, u = book.move(j, Wt @ V, (Wt @ v_y[..., None])[..., 0])
+        K_inv = torch.where(acc[:, None, None], K_inv - (V @ Minv) @ V.transpose(-1, -2), K_inv)
+        v_y = torch.where(acc[:, None], v_y - (V @ u[..., None])[..., 0], v_y)
+    return book.accepts, book.log_alphas
 
-        new_mll = 0.5 * (-quad2 - K_logdet2 + mll_corr)
-        new_mll = torch.where(denom2 > eps, new_mll, -torch.inf)
-        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
-        acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
 
-        K_inv = torch.where(acc[:, None, None], K_inv2, K_inv)
-        K_logdet = torch.where(acc, K_logdet2, K_logdet)
-        v_y = torch.where(acc[:, None], v_y2, v_y)
-        quad = torch.where(acc, quad2, quad)
-        cur_mll = torch.where(acc, new_mll, cur_mll)
-        accepts.append(acc)
-        log_alphas.append(log_alpha)
+def _scan_aug(state, batch, W_pat, y, mask, pad_count, params, beta):
+    """``scan_style="aug"``: the plain scan on the augmented carry
+    A = [K^-1 | K^-1 y] (C, N, N+1). K^-1' y = K^-1 y - V Minv t, so one
+    (N, 2) x (2, N+1) product updates both, and one select keeps them."""
+    h, mll_corr = _scan_scales(state, pad_count, params)
+    W_all = h[:, None, None, None] * W_pat
+    K_inv = state.kern.K_inv
+    v_y = K_inv @ y
+    book = _MoveBook(batch, beta, v_y @ y, state.kern.K_logdet, mll_corr)
+    A = torch.cat([K_inv, v_y[..., None]], -1)  # (C, N, N+1)
+    for j in range(params.num_trees):
+        W = W_all[:, j]
+        Wt = W.transpose(-1, -2)
+        V = A[..., :-1] @ W  # (C, N, 2)
+        t = (Wt @ A[..., -1:])[..., 0]
+        acc, Minv, _ = book.move(j, Wt @ V, t)  # G = W^T K^-1 W by symmetry
+        VT_aug = torch.cat([V.transpose(-1, -2), t[..., None]], -1)  # (C, 2, N+1)
+        A = torch.where(acc[:, None, None], A - (V @ Minv) @ VT_aug, A)
+    return book.accepts, book.log_alphas
 
+
+def _scan_lowrank(state, batch, W_pat, y, mask, pad_count, params, beta):
+    """``scan_style="lowrank"``: K^-1 is never written in the loop.
+
+    The refresh rebuilds K^-1 anyway, so a move needs only the current
+    K^-1 times its own update pair. With the step's K0^-1 and the accepted
+    corrections kept as factors, K^-1 = K0^-1 - P Q^T, move j's
+    V = K0^-1 W_j - P (Q^T W_j), and an accept writes its two columns
+    (P: V Minv, Q: V; unwritten columns are zero and inert). The base
+    products K0^-1 W_j of all m moves are one batched product before the
+    loop, so no move reads an (N, N) operand.
+    """
+    c, m = state.noise.shape[0], params.num_trees
+    n = y.shape[0]
+    h, mll_corr = _scan_scales(state, pad_count, params)
+    W_all = h[:, None, None, None] * W_pat  # (C, m, N, 2)
+    K0_inv = state.kern.K_inv
+    W_flat = W_all.permute(0, 2, 1, 3).reshape(c, n, 2 * m)
+    V0_all = (K0_inv @ W_flat).reshape(c, n, m, 2)  # [:, :, j] = K0^-1 W_j
+    P = torch.zeros_like(W_flat)
+    Q = torch.zeros_like(W_flat)
+    v_y = K0_inv @ y
+    book = _MoveBook(batch, beta, v_y @ y, state.kern.K_logdet, mll_corr)
+    for j in range(m):
+        W = W_all[:, j]
+        Wt = W.transpose(-1, -2)
+        V = V0_all[:, :, j] - P @ (Q.transpose(-1, -2) @ W)  # (C, N, 2)
+        acc, Minv, u = book.move(j, Wt @ V, (Wt @ v_y[..., None])[..., 0])
+        keep = acc[:, None, None]
+        P[..., 2 * j : 2 * j + 2] = torch.where(keep, V @ Minv, 0.0)
+        Q[..., 2 * j : 2 * j + 2] = torch.where(keep, V, 0.0)
+        v_y = torch.where(acc[:, None], v_y - (V @ u[..., None])[..., 0], v_y)
+    return book.accepts, book.log_alphas
+
+
+def _hoist_leaf(state, Wp, h, y, mask, params):
+    """The coeff scan's hoist from the leaf tier's factor L of
+    A = (nu/gamma) I + Z^T Z (K0 = gamma Z Z^T + nu I).
+
+    Hm = (h^2 W_p^T W_p - Sw^T Sw) / nu with Sw = L^-1 (h Z^T W_p), h =
+    sqrt(scale/2m) and W_p the 0/±1 patterns, symmetrised (its B - 1 ~ 1e-2
+    cancellation is why every product here runs at full float32); t0 and
+    the seed's quadratic in residual form (see :func:`_leaf_factor_mll`).
+    Returns (Hm, t0, quad, leaf totals, budget R).
+    """
+    n = y.shape[0]
+    budget = _leaf_budget(params, n)
+    nu = JITTER + state.noise
+    L_A = state.kern.L
+    Z, total = _leaf_Z(state.forest, state.leaves, budget, mask)
+    Zt = Z.transpose(1, 2)
+    CW = Zt @ Wp  # (C, R, 2m) integer counts
+    WtW = Wp.transpose(1, 2) @ Wp  # (C, 2m, 2m) integers
+    Sw = torch.linalg.solve_triangular(L_A, h[:, None, None] * CW, upper=False)
+    w_y = torch.cholesky_solve((Zt @ y)[..., None], L_A)  # (C, R, 1)
+    resid_y = y - (Z @ w_y)[..., 0]  # (C, N)
+    Hm = ((h * h)[:, None, None] * WtW - Sw.transpose(1, 2) @ Sw) / nu[:, None, None]
+    Hm = 0.5 * (Hm + Hm.transpose(1, 2))
+    t0 = (h[:, None] * (Wp.transpose(1, 2) @ resid_y[..., None])[..., 0]) / nu[:, None]
+    quad = (resid_y @ y) / nu  # (C,)
+    return Hm, t0, quad, total, budget
+
+
+def _hoist_factor(state, W_flat, y):
+    """The coeff scan's hoist from the ``factor`` carry, L of K0 (never
+    K0^-1): everything the scan needs is a symmetric product through
+    K0^-1 = L^-T L^-1, so one lower solve with 2m + 1 right-hand sides,
+    [W | y], gives Hm = Zw^T Zw, t0 = Zw^T zy and the quadratic zy^T zy.
+    No N-right-hand-side solve anywhere in the step."""
+    c, n, _ = W_flat.shape
+    rhs = torch.cat([W_flat, y.expand(c, n)[..., None]], -1)  # (C, N, 2m+1)
+    Zs = torch.linalg.solve_triangular(state.kern.L, rhs, upper=False)
+    Zw, zy = Zs[..., :-1], Zs[..., -1]
+    Hm = Zw.transpose(1, 2) @ Zw
+    t0 = (Zw.transpose(1, 2) @ zy[..., None])[..., 0]
+    return Hm, t0, (zy * zy).sum(-1)
+
+
+def _hoist_dense(state, W_flat, y):
+    """The coeff scan's hoist from a carried K0^-1 (the dense refreshes):
+    KW = K0^-1 W, Hm = W^T KW, t0 = W^T K0^-1 y, and the quadratic."""
+    K0_inv = state.kern.K_inv
+    v_y = K0_inv @ y
+    Wt = W_flat.transpose(1, 2)
+    Hm = Wt @ (K0_inv @ W_flat)
+    t0 = (Wt @ v_y[..., None])[..., 0]
+    return Hm, t0, v_y @ y
+
+
+def _scan_coeff(state, batch, W_pat, y, mask, pad_count, params, beta):
+    """``scan_style="coeff"``: the Woodbury algebra of the plain scan in
+    the span of V0 = K0^-1 W (W = all 2m update vectors, columns [add_0,
+    sub_0, add_1, ...]).
+
+    With Hm = W^T K0^-1 W (2m, 2m), K^-1 = K0^-1 - V0 S V0^T and K^-1 y =
+    K0^-1 y - V0 d, move j needs c = E_j - S Tv (Tv = Hm's two columns of
+    the move, E_j the matching identity columns), G = Tv^T c and t = t0_j -
+    Tv^T d, and an accept adds c Minv c^T to S and c u to d. The loop
+    touches only (2m, 2m) tensors; N appears in the hoist, which reads K0
+    through the carry of the refresh: the leaf-space factor
+    (:func:`_hoist_leaf`), the factor of K (:func:`_hoist_factor`) or
+    K^-1 (:func:`_hoist_dense`).
+
+    In the leaf tier a capacity guard carries each chain's leaf total: a
+    grow adds one leaf, a prune removes one, and a move that would take the
+    total past the budget R gets MLL -inf, so the leaf packing of the
+    refresh stays exact. The other hoists have no budget and no guard.
+    """
+    c_, m = state.noise.shape[0], params.num_trees
+    m2 = 2 * m
+    n = y.shape[0]
+    h, mll_corr = _scan_scales(state, pad_count, params)
+    Wp = W_pat.permute(0, 2, 1, 3).reshape(c_, n, m2)  # (C, N, 2m) patterns
+    guard = params.refresh_style == "leaf"
+    if guard:
+        Hm, t0, quad, total, budget = _hoist_leaf(state, Wp, h, y, mask, params)
+        delta = (batch.move == GROW).to(torch.int32) - (batch.move == PRUNE).to(torch.int32)
+    elif params.refresh_style == "factor":
+        Hm, t0, quad = _hoist_factor(state, h[:, None, None] * Wp, y)
+    else:
+        Hm, t0, quad = _hoist_dense(state, h[:, None, None] * Wp, y)
+
+    book = _MoveBook(batch, beta, quad, state.kern.K_logdet, mll_corr)
+    S = torch.zeros((c_, m2, m2), dtype=Hm.dtype, device=Hm.device)
+    d = torch.zeros((c_, m2), dtype=Hm.dtype, device=Hm.device)
+    E_all = torch.eye(m2, dtype=Hm.dtype, device=Hm.device).reshape(m2, m, 2)
+    for j in range(m):
+        Tv = Hm[:, :, 2 * j : 2 * j + 2]  # (C, 2m, 2)
+        Tvt = Tv.transpose(1, 2)
+        c = E_all[:, j] - S @ Tv  # (C, 2m, 2)
+        t = t0[:, 2 * j : 2 * j + 2] - (Tvt @ d[..., None])[..., 0]  # (C, 2)
+        veto = total + delta[:, j] > budget if guard else None
+        acc, Minv, u = book.move(j, Tvt @ c, t, veto)
+        S = torch.where(acc[:, None, None], S + (c @ Minv) @ c.transpose(1, 2), S)
+        d = torch.where(acc[:, None], d + (c @ u[..., None])[..., 0], d)
+        if guard:
+            total = total + torch.where(acc, delta[:, j], 0)
+    return book.accepts, book.log_alphas
+
+
+_SCANS = {"plain": _scan_plain, "aug": _scan_aug, "lowrank": _scan_lowrank,
+          "coeff": _scan_coeff}
+
+
+def _tree_moves_rank1(
+    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
+):
+    """m tree moves of the rank1 backend: the proposal batch, the update
+    patterns, then the move scan of ``params.scan_style`` (see
+    :data:`_SCANS`). Every move's kernel delta is exactly rank 2 (see
+    :func:`_update_patterns`); the refresh rebuilds the carry exactly, so
+    the scan's own carry is dropped.
+
+    Returns (forest, leaves, subspaces, accepts (C, m), log_alpha (C, m)).
+    """
+    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
+    W_pat = _update_patterns(packed0, batch, mask)
+    scan = _SCANS[params.scan_style]
+    accepts, log_alphas = scan(state, batch, W_pat, y.reshape(-1), mask, pad_count, params, beta)
     accepts = torch.stack(accepts, 1)
-    forest, leaves = _merge_accepted(packed0, batch, accepts)
-    return forest, leaves, accepts, torch.stack(log_alphas, 1)
+    forest, leaves, subs = _merge_accepted(packed0, state, batch, accepts)
+    return forest, leaves, subs, accepts, torch.stack(log_alphas, 1)
 
 
 def _tree_moves_chol(
@@ -625,7 +881,8 @@ def _tree_moves_chol(
     and the move rejects. Nothing drifts: no inverse is carried, so the
     scan's seed is the state's own MLL, as in the reference.
 
-    Returns (forest, leaves, accepts (C, m), log_alpha (C, m), K, mll).
+    Returns (forest, leaves, subspaces, accepts (C, m), log_alpha (C, m),
+    K, mll).
     """
     s_over_m = (state.scale / params.num_trees)[:, None, None]
     packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
@@ -642,127 +899,125 @@ def _tree_moves_chol(
         )
         K_new = K + delta
         new_mll, _ = _chol_mll(blocked_cholesky(K_new)[0], y_flat, state.noise, pad_count)
-        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
-        acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
+        acc, log_alpha = _accept(batch.log_q_prior[:, j], beta, new_mll, cur_mll, log_u[:, j],
+                                 zero)
         K = torch.where(acc[:, None, None], K_new, K)
         cur_mll = torch.where(acc, new_mll, cur_mll)
         accepts.append(acc)
         log_alphas.append(log_alpha)
 
     accepts = torch.stack(accepts, 1)
-    forest, leaves = _merge_accepted(packed0, batch, accepts)
-    return forest, leaves, accepts, torch.stack(log_alphas, 1), K, cur_mll
+    forest, leaves, subs = _merge_accepted(packed0, state, batch, accepts)
+    return forest, leaves, subs, accepts, torch.stack(log_alphas, 1), K, cur_mll
 
 
-def _tree_moves_coeff(
+def _woodbury_update(K_inv, K_logdet, U, eye, subtract):
+    """``(K +- U U^T)^-1`` and its logdet from K^-1 (C, N, N) and U (C, N, L).
+
+    Both through one Cholesky of the capacitance M = I -+ U^T K^-1 U (SPD
+    either way while the update keeps K positive definite), factored by K2
+    (:func:`~bark_tpu_torch.ops.chol.chol_inv`), which also returns Lm^-1:
+    with W = Lm^-1 (K^-1 U)^T the correction is W^T W, and logdet K' =
+    logdet K + logdet M. A failed factorization gives NaN, and the move
+    rejects.
+    """
+    KU = K_inv @ U
+    UKU = U.transpose(-1, -2) @ KU
+    M = eye - UKU if subtract else eye + UKU
+    Lm, Em = chol_inv(M)
+    logdet_M = 2.0 * torch.log(torch.diagonal(Lm, dim1=-2, dim2=-1)).sum(-1)
+    W = Em @ KU.transpose(-1, -2)  # (C, L, N)
+    correction = W.transpose(-1, -2) @ W
+    K_inv_new = K_inv + correction if subtract else K_inv - correction
+    return K_inv_new, K_logdet + logdet_M
+
+
+def _tree_moves_woodbury(
     state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
 ):
-    """m tree moves in coefficient space with the leaf-capacity guard (leaf tier).
+    """m tree moves of the woodbury backend, the original BARK algorithm.
 
-    The Woodbury algebra of :func:`_tree_moves_rank1` in the span of
-    V0 = K0^-1 W (W = all 2m update vectors, columns [add_0, sub_0, add_1,
-    ...]): with Hm = W^T K0^-1 W (2m, 2m), K^-1 = K0^-1 - V0 S V0^T and
-    K^-1 y = K0^-1 y - V0 d, move j needs c = E_j - S Tv (Tv = Hm's two
-    columns of the move, E_j the matching identity columns), G = Tv^T c and
-    t = t0_j - Tv^T d, and an accept adds c Minv c^T to S and c u to d. The
-    loop touches only (2m, 2m) tensors; N appears in the hoisted products.
+    The kernel of tree j is (scale/m) U U^T with U the one-hot of each
+    row's leaf among the tree's active leaves, ranked in node order
+    (``node_limit // 2`` columns, enough for any tree; padded rows zero). A
+    move takes the current tree's U out and the proposed tree's in, two
+    rank-L updates of K^-1 and logdet K (:func:`_woodbury_update`), and the
+    MLL from the new K^-1 (``masked_mll``). The scan starts from
+    ``state.mll``, as in the reference. The indicators of all m moves are
+    built before the loop (they depend only on the proposal batch).
 
-    The hoist reads K0 through the carried factor L of A = (nu/gamma) I +
-    Z^T Z (K0 = gamma Z Z^T + nu I): Hm = (h^2 W_p^T W_p - Sw^T Sw) / nu
-    with Sw = L^-1 (h Z^T W_p), h = sqrt(scale/2m) and W_p the 0/±1
-    patterns, symmetrised (its B - 1 ~ 1e-2 cancellation is why every
-    product here runs at full float32); t0 and the seed's quadratic in
-    residual form (see :func:`_leaf_factor_mll`).
-
-    The capacity guard carries each chain's leaf total: a grow adds one
-    leaf, a prune removes one, and a move that would take the total past
-    the budget R gets MLL -inf, so the leaf packing of the refresh stays
-    exact.
-
-    Returns (forest, leaves, accepts (C, m), log_alpha (C, m)).
+    Returns (forest, leaves, subspaces, accepts (C, m), log_alpha (C, m),
+    K^-1, logdet K, mll).
     """
-    c_, m = state.noise.shape[0], params.num_trees
-    m2 = 2 * m
-    n = X.shape[0]
-    h = torch.sqrt(state.scale / (2.0 * m))  # (C,)
-    eps = 1e-6
+    num_cols = params.node_limit // 2
     packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
-    W_pat = _update_patterns(packed0, batch, mask)
-    Wp = W_pat.permute(0, 2, 1, 3).reshape(c_, n, m2)  # (C, N, 2m)
+    dtype = mask.dtype
+    cols = torch.arange(num_cols, device=X.device)
+    row_scale = torch.sqrt(state.scale / params.num_trees)[:, None] * mask  # (C, N)
 
-    budget = _leaf_budget(params, n)
+    def indicators(packed, leavesT):
+        """(C, m, N, L): row i of tree j lights its leaf's rank."""
+        is_leaf = (packed[..., 0] & packed[..., 7]) == 1  # (C, m, node_limit)
+        ranks = torch.cumsum(is_leaf, -1) - 1
+        r = torch.gather(ranks, 2, leavesT.long())  # (C, m, N)
+        return (r[..., None] == cols).to(dtype) * row_scale[:, None, :, None]
+
+    U_cur = indicators(packed0, batch.cur_leavesT)
+    U_new = indicators(batch.new_packed, batch.new_leavesT)
+    eye = torch.eye(num_cols, dtype=dtype, device=X.device)
     y_flat = y.reshape(-1)
-    nu = JITTER + state.noise
-    L_A = state.kern.L
-    Z, total = _leaf_Z(state.forest, state.leaves, budget, mask)
-    Zt = Z.transpose(1, 2)
-    CW = Zt @ Wp  # (C, R, 2m) integer counts
-    WtW = Wp.transpose(1, 2) @ Wp  # (C, 2m, 2m) integers
-    Sw = torch.linalg.solve_triangular(L_A, h[:, None, None] * CW, upper=False)
-    w_y = torch.cholesky_solve((Zt @ y_flat)[..., None], L_A)  # (C, R, 1)
-    resid_y = y_flat - (Z @ w_y)[..., 0]  # (C, N)
-    Hm = ((h * h)[:, None, None] * WtW - Sw.transpose(1, 2) @ Sw) / nu[:, None, None]
-    Hm = 0.5 * (Hm + Hm.transpose(1, 2))
-    t0 = (h[:, None] * (Wp.transpose(1, 2) @ resid_y[..., None])[..., 0]) / nu[:, None]
-    quad = (resid_y @ y_flat) / nu  # (C,)
-
-    mll_corr = pad_count * torch.log(nu)
-    K_logdet = state.kern.K_logdet
-    cur_mll = 0.5 * (-quad - K_logdet + mll_corr)  # scan-consistent seed
-    S = torch.zeros((c_, m2, m2), dtype=Hm.dtype, device=Hm.device)
-    d = torch.zeros((c_, m2), dtype=Hm.dtype, device=Hm.device)
-    E_all = torch.eye(m2, dtype=Hm.dtype, device=Hm.device).reshape(m2, m, 2)
-    delta = (batch.move == GROW).to(torch.int32) - (batch.move == PRUNE).to(torch.int32)
+    K_inv, K_logdet, cur_mll = state.kern.K_inv, state.kern.K_logdet, state.mll
     log_u = torch.log(batch.u_accept)
     zero = torch.zeros_like(cur_mll)
 
     accepts, log_alphas = [], []
-    for j in range(m):
-        Tv = Hm[:, :, 2 * j : 2 * j + 2]  # (C, 2m, 2)
-        Tvt = Tv.transpose(1, 2)
-        c = E_all[:, j] - S @ Tv  # (C, 2m, 2)
-        G = Tvt @ c  # (C, 2, 2)
-        t = t0[:, 2 * j : 2 * j + 2] - (Tvt @ d[..., None])[..., 0]  # (C, 2)
-        Minv, detM, denom2 = _capacitance_inverse(G)
-        K_logdet2 = K_logdet + torch.log(-detM)
-        u = (Minv @ t[..., None])[..., 0]
-        quad2 = quad - (t * u).sum(-1)
-
-        new_mll = 0.5 * (-quad2 - K_logdet2 + mll_corr)
-        new_mll = torch.where(denom2 > eps, new_mll, -torch.inf)
-        new_mll = torch.where(total + delta[:, j] > budget, -torch.inf, new_mll)
-        log_alpha = batch.log_q_prior[:, j] + _tempered(beta, new_mll - cur_mll)
-        acc = log_u[:, j] <= torch.minimum(log_alpha, zero)
-
-        S = torch.where(acc[:, None, None], S + (c @ Minv) @ c.transpose(1, 2), S)
-        d = torch.where(acc[:, None], d + (c @ u[..., None])[..., 0], d)
+    for j in range(params.num_trees):
+        K_inv1, K_logdet1 = _woodbury_update(K_inv, K_logdet, U_cur[:, j], eye, True)
+        K_inv2, K_logdet2 = _woodbury_update(K_inv1, K_logdet1, U_new[:, j], eye, False)
+        new_mll = masked_mll(K_inv2, K_logdet2, y_flat, state.noise, pad_count)
+        acc, log_alpha = _accept(batch.log_q_prior[:, j], beta, new_mll, cur_mll, log_u[:, j],
+                                 zero)
+        K_inv = torch.where(acc[:, None, None], K_inv2, K_inv)
         K_logdet = torch.where(acc, K_logdet2, K_logdet)
-        quad = torch.where(acc, quad2, quad)
         cur_mll = torch.where(acc, new_mll, cur_mll)
-        total = total + torch.where(acc, delta[:, j], 0)
         accepts.append(acc)
         log_alphas.append(log_alpha)
 
     accepts = torch.stack(accepts, 1)
-    forest, leaves = _merge_accepted(packed0, batch, accepts)
-    return forest, leaves, accepts, torch.stack(log_alphas, 1)
+    forest, leaves, subs = _merge_accepted(packed0, state, batch, accepts)
+    return (forest, leaves, subs, accepts, torch.stack(log_alphas, 1), K_inv, K_logdet,
+            cur_mll)
+
+
+def _pick(accept, pair):
+    """Branch 1 of ``pair`` (C, 2, ...) where ``accept`` (C,), else branch 0."""
+    sel = accept.reshape(-1, *([1] * (pair.dim() - 2)))
+    return torch.where(sel, pair[:, 1], pair[:, 0])
 
 
 def _refresh(forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count,
-             params, leaf_tier):
-    """The exact refresh of the shipped tiers: both MH branches of the noise
-    move (current and proposed noise/scale) factored at once from the
-    post-scan leaves. Returns (cur_mll, new_mll, L2, E2, logdet2), the
-    factors and logdets (C, 2, ...) of both branches (E2 None in the leaf
-    tier)."""
+             params) -> tuple[torch.Tensor, torch.Tensor, Callable[[torch.Tensor], KernState]]:
+    """The rank1 backend's exact refresh: both MH branches of the noise move
+    (current and proposed noise/scale) from the post-scan leaves, by
+    ``params.refresh_style``. Returns (cur_mll, new_mll, kern_of), where
+    ``kern_of(accept)`` gives the carry of the selected branches.
+
+      - ``leaf``: Z of the new leaves, G = Z^T Z shared by both branches,
+        both A_b factored in one K2 call; no (N, N) object. An over-budget
+        packing (unreachable from a valid init, the scan's guard rejects
+        grows at capacity) keeps the NaN poison.
+      - ``onesolve``/``factor``: the Gram of the new leaves (K1), both
+        kernel matrices factored at once, both MLLs from the factors (z =
+        L^-1 y); onesolve carries K^-1 = E^T E of the selected branch's
+        inverse factor E, factor the selected branch's L.
+      - ``batched``: both branches' inverse and logdet in one call, the
+        MLLs from the inverses.
+      - ``pair``: the same in two calls, one per branch.
+    """
     noise2 = torch.stack([state.noise, new_noise], 1)  # (C, 2)
     scale2 = torch.stack([state.scale, new_scale], 1)
-    E2 = None
-    if leaf_tier:
-        # exact refresh in leaf space: Z of the new leaves, G = Z^T Z shared
-        # by both MH branches, both A_b factored in one K2 call; no (N, N)
-        # object. An over-budget packing (unreachable from a valid init, the
-        # scan's guard rejects grows at capacity) keeps the NaN poison.
+    style = params.refresh_style
+    if style == "leaf":
         budget = _leaf_budget(params, X.shape[0])
         Z, total = _leaf_Z(forest, leaves, budget, mask)
         L2, logdet2, mll2 = _leaf_factor_mll(
@@ -770,16 +1025,32 @@ def _refresh(forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_c
             scale2 / params.num_trees, pad_count,
         )
         mll2 = torch.where((total <= budget)[:, None], mll2, torch.nan)
-    else:
-        # exact refresh (onesolve): rebuild the Gram from the new leaves and
-        # factor both MH branches of the noise move at once; both MLLs come
-        # from the factors (z = L^-1 y), and the selected branch's inverse
-        # factor gives the carried K^-1 without an N-right-hand-side solve
-        gram = gram_from_leaves(leaves, leaves, mask, mask, params.node_limit)
+        return mll2[:, 0], mll2[:, 1], lambda acc: KernState(
+            K_inv=None, K_logdet=_pick(acc, logdet2), L=_pick(acc, L2))
+    gram = _gram(leaves, mask, params)
+    if style in ("onesolve", "factor"):
         K2 = kernel_matrix(gram[:, None], noise2, scale2)  # (C, 2, N, N)
         L2, E2 = blocked_cholesky(K2)
         mll2, logdet2 = _chol_mll(L2, y_flat, noise2, pad_count)
-    return mll2[:, 0], mll2[:, 1], L2, E2, logdet2
+        if style == "factor":
+            kern_of = lambda acc: KernState(  # noqa: E731
+                K_inv=None, K_logdet=_pick(acc, logdet2), L=_pick(acc, L2))
+        else:
+            def kern_of(acc):
+                E_sel = _pick(acc, E2)
+                return KernState(K_inv=E_sel.transpose(-1, -2) @ E_sel,
+                                 K_logdet=_pick(acc, logdet2))
+        return mll2[:, 0], mll2[:, 1], kern_of
+    if style == "batched":
+        inv2, logdet2 = chol_inv_logdet(kernel_matrix(gram[:, None], noise2, scale2))
+    else:  # "pair"
+        cur = chol_inv_logdet(kernel_matrix(gram, state.noise, state.scale))
+        new = chol_inv_logdet(kernel_matrix(gram, new_noise, new_scale))
+        inv2 = torch.stack([cur[0], new[0]], 1)
+        logdet2 = torch.stack([cur[1], new[1]], 1)
+    mll2 = masked_mll(inv2, logdet2, y_flat, noise2, pad_count)
+    return mll2[:, 0], mll2[:, 1], lambda acc: KernState(
+        K_inv=_pick(acc, inv2), K_logdet=_pick(acc, logdet2))
 
 
 def step_with_info(
@@ -796,35 +1067,33 @@ def step_with_info(
     """One full MCMC step for C chains: m tree moves + one noise/scale move.
 
     ``beta`` is the inverse temperature of likelihood tempering (parallel
-    tempering, SMC): a float, or a (C,) float32 tensor with one per chain
-    row. It multiplies the MLL difference of every MH ratio, the tree moves'
-    and the noise move's; the proposal ratios stay untempered, and beta = 1
-    is the plain step. (It is not ``params.beta``, the tree prior's depth
+    tempering, SMC): a float, or a (C,) tensor with one per chain row. It
+    multiplies the MLL difference of every MH ratio, the tree moves' and the
+    noise move's; the proposal ratios stay untempered, and beta = 1 is the
+    plain step. (It is not ``params.beta``, the tree prior's depth
     exponent.)
 
-    With ``kernel_backend="chol"`` the tree moves are
-    :func:`_tree_moves_chol`, and the noise move rescales the carried K
-    exactly, ``(new_scale/scale) (K - (jitter + noise) I) + (jitter +
-    new_noise) I``, with one more factorization and no refresh.
+    The noise move: rank1 refreshes both branches exactly (:func:`_refresh`);
+    chol rescales the carried K exactly, ``(new_scale/scale) (K - (jitter +
+    noise) I) + (jitter + new_noise) I``, with one more factorization;
+    woodbury rebuilds K at the proposed noise and scale from the Gram (K1)
+    and factors it (K2), and keeps the scan's K^-1 if the move rejects.
 
     Returns the new state and the step's accept decisions; the log ratios in
     :class:`StepInfo` are the tempered ones.
     """
     params = _resolve_styles(params, X.shape[0])
     check_matmul_precision()
-    mask = _default_mask(X, mask)
+    mask = _default_mask(X, mask, y.dtype)
     pad_count = X.shape[0] - mask.sum()
     y_flat = y.reshape(-1)
 
     (new_noise, new_scale), log_q_hyper = get_noise_scale_proposal(
         draws.z_noise, draws.z_scale, state.noise, state.scale, params
     )
-    chol = params.kernel_backend == "chol"
-    leaf_tier = not chol and params.refresh_style == "leaf"
-    if chol:
-        forest, leaves, accepts, tree_log_alpha, K, cur_mll = _tree_moves_chol(
-            state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
-        )
+    args = (state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta)
+    if params.kernel_backend == "chol":
+        forest, leaves, subs, accepts, tree_log_alpha, K, cur_mll = _tree_moves_chol(*args)
         # the noise move rescales the exact K elementwise: no Gram rebuild,
         # one more factorization
         eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
@@ -833,38 +1102,35 @@ def step_with_info(
             JITTER + new_noise
         )[:, None, None] * eye
         new_mll, _ = _chol_mll(blocked_cholesky(K_hyp)[0], y_flat, new_noise, pad_count)
+        kern_of = lambda acc: KernState(  # noqa: E731
+            K_inv=None, K_logdet=None, K=torch.where(acc[:, None, None], K_hyp, K))
+    elif params.kernel_backend == "woodbury":
+        (forest, leaves, subs, accepts, tree_log_alpha, K_inv, K_logdet,
+         cur_mll) = _tree_moves_woodbury(*args)
+        new_inv, new_logdet = chol_inv_logdet(
+            kernel_matrix(_gram(leaves, mask, params), new_noise, new_scale))
+        new_mll = masked_mll(new_inv, new_logdet, y_flat, new_noise, pad_count)
+        kern_of = lambda acc: KernState(  # noqa: E731
+            K_inv=torch.where(acc[:, None, None], new_inv, K_inv),
+            K_logdet=torch.where(acc, new_logdet, K_logdet))
     else:
-        tree_moves = _tree_moves_coeff if leaf_tier else _tree_moves_rank1
-        forest, leaves, accepts, tree_log_alpha = tree_moves(
-            state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta
-        )
-        cur_mll, new_mll, L2, E2, logdet2 = _refresh(
-            forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count,
-            params, leaf_tier,
+        forest, leaves, subs, accepts, tree_log_alpha = _tree_moves_rank1(*args)
+        cur_mll, new_mll, kern_of = _refresh(
+            forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count, params,
         )
 
     log_alpha = log_q_hyper + _tempered(beta, new_mll - cur_mll)
     accept = torch.log(draws.u_hyper) <= torch.minimum(
         log_alpha, torch.zeros_like(log_alpha)
     )
-    if chol:
-        K_sel = torch.where(accept[:, None, None], K_hyp, K)
-        kern = KernState(K_inv=None, K_logdet=None, K=K_sel)
-    else:
-        K_logdet = torch.where(accept, logdet2[:, 1], logdet2[:, 0])
-        if leaf_tier:
-            L_sel = torch.where(accept[:, None, None], L2[:, 1], L2[:, 0])
-            kern = KernState(K_inv=None, K_logdet=K_logdet, L=L_sel)
-        else:
-            E_sel = torch.where(accept[:, None, None], E2[:, 1], E2[:, 0])
-            kern = KernState(K_inv=E_sel.transpose(-1, -2) @ E_sel, K_logdet=K_logdet)
     new_state = ChainState(
         forest=forest,
         leaves=leaves,
         noise=torch.where(accept, new_noise, state.noise),
         scale=torch.where(accept, new_scale, state.scale),
-        kern=kern,
+        kern=kern_of(accept),
         mll=torch.where(accept, new_mll, cur_mll),
+        subspaces=subs,
     )
     info = StepInfo(
         tree_accepts=accepts, tree_log_alpha=tree_log_alpha,

@@ -1,8 +1,13 @@
 """Fixed-shape tree traversal: node masks and node subspaces.
 
-Counterpart of the parts of ``bark_tpu/fitting/traversal.py`` the sampler's
-default proposals and the acquisition search's leaf boxes use, batched over
-any leading dims (chains x trees).
+Counterpart of ``bark_tpu/fitting/traversal.py``, batched over any leading
+dims (chains x trees). The chosen node's subspace has one lowering per
+proposal ``hot_style``: the packed walk (``walk_select`` and ``select``),
+the walk on unpacked fields with scatter writes (``scatter``) and pointer
+doubling with an order-independent reduction (``doubling``); all are
+bit-identical. ``subspace_mode="carry"`` starts from
+:func:`all_node_subspaces` and keeps it current with
+:func:`child_subspaces`.
 """
 
 from __future__ import annotations
@@ -24,6 +29,24 @@ def singly_internal_mask(tree: Forest) -> torch.Tensor:
         tree.is_leaf, -1, tree.left.long()
     ) & torch.gather(tree.is_leaf, -1, tree.right.long())
     return tree.active & (~tree.is_leaf) & both_children_leaves
+
+
+def _walk_bounds(upper, lower, f, thr, is_left, feat_types):
+    """One walk trip's new (ub, lb) of feature ``f`` from the current bounds
+    and the parent's split (categorical complement against the next power
+    of two of the current upper bound)."""
+    ub_f = torch.gather(upper, -1, f[..., None])[..., 0]
+    lb_f = torch.gather(lower, -1, f[..., None])[..., 0]
+    ftype = feat_types[f]
+    thr_i = thr.to(torch.int32)
+    ub_i = ub_f.to(torch.int32)
+    neg_thr = next_power_of_2(ub_i) - 1 - thr_i
+    cat_ub = torch.where(is_left, thr_i & ub_i, neg_thr & ub_i).to(upper.dtype)
+    int_delta = (ftype == FEAT_INT).to(lower.dtype)
+    num_ub = torch.where(is_left, torch.minimum(thr, ub_f), ub_f)
+    num_lb = torch.where(is_left, lb_f, torch.maximum(thr + int_delta, lb_f))
+    f_is_cat = ftype == FEAT_CAT
+    return torch.where(f_is_cat, cat_ub, num_ub), torch.where(f_is_cat, lb_f, num_lb)
 
 
 def node_subspace_packed(
@@ -55,25 +78,7 @@ def node_subspace_packed(
         f = prow[:, 1].long()
         thr = prow[:, 2].contiguous().view(torch.float32)
         is_left = node == prow[:, 3]
-
-        ub_f = torch.gather(upper, 1, f[:, None])[:, 0]
-        lb_f = torch.gather(lower, 1, f[:, None])[:, 0]
-        ftype = feat_types[f]
-        f_is_cat = ftype == FEAT_CAT
-        f_is_int = ftype == FEAT_INT
-
-        thr_i = thr.to(torch.int32)
-        ub_i = ub_f.to(torch.int32)
-        max_thr = next_power_of_2(ub_i) - 1
-        neg_thr = max_thr - thr_i
-        cat_ub = torch.where(is_left, thr_i & ub_i, neg_thr & ub_i).to(upper.dtype)
-
-        int_delta = f_is_int.to(lower.dtype)
-        num_ub = torch.where(is_left, torch.minimum(thr, ub_f), ub_f)
-        num_lb = torch.where(is_left, lb_f, torch.maximum(thr + int_delta, lb_f))
-
-        new_ub = torch.where(f_is_cat, cat_ub, num_ub)
-        new_lb = torch.where(f_is_cat, lb_f, num_lb)
+        new_ub, new_lb = _walk_bounds(upper, lower, f, thr, is_left, feat_types)
 
         upd = (iota_d == f[:, None]) & ~at_root[:, None]
         upper = torch.where(upd, new_ub[:, None], upper)
@@ -100,3 +105,148 @@ def node_subspace(
     packed = pack_forest(tree).reshape(-1, tree.is_leaf.shape[-1], 8)
     box = node_subspace_packed(packed, node_idx.reshape(-1), bounds, feat_types, max_depth)
     return box.reshape(*lead, *box.shape[-2:])
+
+
+def node_subspace_scatter(
+    tree: Forest,
+    node_idx: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int,
+) -> torch.Tensor:
+    """Sub-domains ``(B, K, D, 2)`` of nodes ``node_idx`` (B, K) of trees
+    with fields (B, node_limit): the reference's ``node_subspace`` walk
+    (``hot_style="scatter"``), reading the unpacked fields by gathers and
+    writing each trip's bound with a scatter, masked once the root is
+    reached."""
+    b, k = node_idx.shape
+    d = bounds.shape[0]
+    lower = bounds[:, 0].expand(b, k, d).clone()
+    upper = bounds[:, 1].expand(b, k, d).clone()
+    node = node_idx.long()
+    for _ in range(max_depth):
+        at_root = (node == 0)[..., None]
+        parent = torch.gather(tree.parent, 1, node).long()
+        f = torch.gather(tree.feature, 1, parent).long()
+        thr = torch.gather(tree.threshold, 1, parent)
+        is_left = node == torch.gather(tree.left, 1, parent)
+        new_ub, new_lb = _walk_bounds(upper, lower, f, thr, is_left, feat_types)
+        upper = torch.where(at_root, upper, upper.scatter(2, f[..., None], new_ub[..., None]))
+        lower = torch.where(at_root, lower, lower.scatter(2, f[..., None], new_lb[..., None]))
+        node = torch.where(at_root[..., 0], node, parent)
+    return torch.stack([lower, upper], dim=-1)
+
+
+def node_subspace_doubling(
+    packed: torch.Tensor,
+    node_idx: torch.Tensor,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int,
+) -> torch.Tensor:
+    """:func:`node_subspace_packed` by pointer doubling (``hot_style="doubling"``).
+
+    The walk's intersections do not depend on their order (min over the
+    thresholds of left ancestors, max over those of right ancestors, AND of
+    the category masks with the complement taken against the domain's
+    power-of-two ceiling, which is exact since ``(M - thr) & U == U & ~thr``
+    for any ``M`` covering ``U``). So the ancestor chain of ``max_depth``
+    nodes comes from log2(max_depth) doubling gathers, and every ancestor's
+    contribution is reduced at once. ``packed`` (B, node_limit, 8), nodes
+    (B,); returns (B, D, 2), bit-identical with the walk.
+    """
+    b, nl, _ = packed.shape
+    device = packed.device
+    d = bounds.shape[0]
+    parent = packed[..., 5].long()
+    parent = torch.where(torch.arange(nl, device=device) == 0, 0, parent)
+
+    # chain[:, i] = parent^i(node): a chain of length L extends to 2L by one
+    # gather through parent^L
+    chain = node_idx.long()[:, None]
+    P = parent
+    length = 1
+    while length < max_depth:
+        chain = torch.cat([chain, torch.gather(P, 1, chain)], 1)
+        if 2 * length < max_depth:
+            P = torch.gather(P, 1, P)
+        length *= 2
+    chain = chain[:, :max_depth]
+
+    anc, prev = chain[:, 1:], chain[:, :-1]  # ancestors and their on-path child
+    valid = prev != 0  # nothing contributes once the path is at the root
+    rows = torch.gather(packed, 1, anc[..., None].expand(-1, -1, 8))  # (B, depth-1, 8)
+    thr = rows[..., 2].contiguous().view(torch.float32)
+    is_left = (prev == rows[..., 3])[..., None]
+    contrib = (rows[..., 1:2] == torch.arange(d, device=device)) & valid[..., None]
+
+    lower, upper = bounds[:, 0], bounds[:, 1]
+    inf = upper.new_full((), torch.inf)  # a fill on the device, no copy from the host
+    ub_cand = torch.where(contrib & is_left, thr[..., None], inf)
+    num_ub = torch.minimum(upper, ub_cand.amin(1))
+    int_delta = (feat_types == FEAT_INT).to(lower.dtype)
+    lb_cand = torch.where(contrib & ~is_left, thr[..., None] + int_delta, -inf)
+    num_lb = torch.maximum(lower, lb_cand.amax(1))
+
+    ceiling = next_power_of_2(upper.to(torch.int32)) - 1  # (D,)
+    thr_i = thr.to(torch.int32)[..., None]
+    cat_c = torch.where(is_left, thr_i, ceiling - thr_i)
+    cat_c = torch.where(contrib, cat_c, -1)  # -1 is AND's identity
+    # the AND in log2 halvings, padded to a power of two with -1
+    rows_n = cat_c.shape[1]
+    pow2 = 1 << (rows_n - 1).bit_length()
+    cat_c = torch.cat([cat_c, cat_c.new_full((b, pow2 - rows_n, d), -1)], 1)
+    while cat_c.shape[1] > 1:
+        half = cat_c.shape[1] // 2
+        cat_c = cat_c[:, :half] & cat_c[:, half:]
+    cat_ub = (upper.to(torch.int32) & cat_c[:, 0]).to(upper.dtype)
+
+    is_cat = feat_types == FEAT_CAT
+    new_ub = torch.where(is_cat, cat_ub, num_ub)
+    new_lb = torch.where(is_cat, lower, num_lb)
+    return torch.stack([new_lb, new_ub], dim=-1)
+
+
+def child_subspaces(
+    subspace: torch.Tensor,
+    feat: torch.Tensor,
+    thr: torch.Tensor,
+    feat_types: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Left and right child subspaces (B, D, 2) of nodes with subspaces
+    ``subspace`` (B, D, 2) split by ``(feat, thr)`` (B,): one walk trip,
+    top-down. Bit-identical with the walk from the root (the categorical
+    complement identity of :func:`node_subspace_doubling`; min and max are
+    exact), which is what lets the sampler carry the subspaces."""
+    rows = torch.arange(subspace.shape[0], device=subspace.device)
+    feat = feat.long()
+    lower, upper = subspace[..., 0], subspace[..., 1]
+    thr = thr.to(subspace.dtype)
+    left = torch.ones_like(feat, dtype=torch.bool)
+    left_ub, _ = _walk_bounds(upper, lower, feat, thr, left, feat_types)
+    right_ub, right_lb = _walk_bounds(upper, lower, feat, thr, ~left, feat_types)
+    left = subspace.clone()
+    left[rows, feat, 1] = left_ub
+    right = subspace.clone()
+    right[rows, feat, 0] = right_lb
+    right[rows, feat, 1] = right_ub
+    return left, right
+
+
+def all_node_subspaces(
+    tree: Forest,
+    bounds: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int,
+) -> torch.Tensor:
+    """Subspaces of every node slot, ``(..., node_limit, D, 2)`` for trees
+    with fields (..., node_limit): the start of the sampler's subspace
+    carry. Rows of inactive slots hold whatever the walk gives and are
+    never read (proposals target active nodes, and a grow writes the rows
+    of the slots it activates)."""
+    lead = tree.is_leaf.shape[:-1]
+    nl = tree.is_leaf.shape[-1]
+    flat = Forest(*(t.reshape(-1, nl) for t in tree))
+    nodes = torch.arange(nl, device=bounds.device).expand(flat.is_leaf.shape[0], nl)
+    subs = node_subspace_scatter(flat, nodes, bounds, feat_types, max_depth)
+    return subs.reshape(*lead, *subs.shape[1:])

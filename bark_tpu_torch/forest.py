@@ -9,6 +9,8 @@ batch (chains, samples). Node records mirror the reference:
     test ``x <= threshold``;
   - routing is the fixed-trip gather walk (``max_depth`` trips), the walk
     the reference names as the CPU/GPU choice (``route_forest_auto``);
+    ``route_forest_select`` is the reference's TPU lowering of the same
+    walk, as one-hot transition products, with identical results;
   - the agreement Gram counts, for each pair of points, the trees in which
     they share a leaf, divided by ``m``. It runs through the hand-written
     CUDA kernel of :mod:`bark_tpu_torch.ops.gram` on the card;
@@ -168,6 +170,61 @@ def route_forest(
     """Route data through every tree: fields ``(..., m, node_limit)`` ->
     leaf indices ``(..., N, m)`` (int32)."""
     return route_tree(forest, X, feat_types, max_depth).transpose(-1, -2)
+
+
+def route_forest_select(
+    forest: Forest,
+    X: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = DEFAULT_MAX_DEPTH,
+) -> torch.Tensor:
+    """:func:`route_forest` as one-hot transition products, identical results.
+
+    Every split decision of every node is taken at once (the feature values
+    by one gather: a data value never goes through a product, where a
+    reduced-precision multiply could round it across a threshold), and the
+    walk advances a one-hot node distribution through each tree's left and
+    right transition matrices:
+    ``next = oh * is_leaf + (oh * dec) @ Lmat + (oh * (1 - dec)) @ Rmat``,
+    exact on 0/1 operands. Fields (..., m, node_limit); returns leaf indices
+    (..., N, m) (int32). Rows are walked in blocks of 1024 past 2048, so the
+    (rows, ..., m, node_limit) transients stay one block's.
+    """
+    nl = forest.node_limit
+    lead = forest.feature.shape[:-1]  # (..., m)
+    feat = forest.feature.long()
+    is_cat = (feat_types == FEAT_CAT)[feat]  # (..., m, L)
+    stay = forest.is_leaf.to(torch.float32).reshape(-1, nl)  # (P, L), P trees
+    Lmat = torch.nn.functional.one_hot(forest.left.long(), nl).to(torch.float32).reshape(-1, nl, nl)
+    Rmat = torch.nn.functional.one_hot(forest.right.long(), nl).to(torch.float32).reshape(-1, nl, nl)
+
+    def walk(Xb):
+        dec = _split_decision(Xb[:, feat], forest.threshold, is_cat).to(torch.float32)
+        dec = dec.reshape(Xb.shape[0], -1, nl)  # (Bb, P, L)
+        oh = torch.zeros_like(dec)
+        oh[..., 0] = 1.0
+        for _ in range(max_depth):
+            go = oh * (1.0 - stay)
+            oh = (oh * stay + torch.einsum("bpl,pln->bpn", go * dec, Lmat)
+                  + torch.einsum("bpl,pln->bpn", go * (1.0 - dec), Rmat))
+        return torch.argmax(oh, dim=-1).to(torch.int32).reshape(Xb.shape[0], *lead)
+
+    b = X.shape[0]
+    blocks = [X] if b <= 2048 else torch.split(X, 1024)
+    return torch.cat([walk(xb) for xb in blocks]).movedim(0, -2)
+
+
+def route_forest_auto(
+    forest: Forest,
+    X: torch.Tensor,
+    feat_types: torch.Tensor,
+    max_depth: int = DEFAULT_MAX_DEPTH,
+) -> torch.Tensor:
+    """The routing of the device: the gather walk (:func:`route_forest`), as
+    the reference chooses off a TPU, on the card and on the CPU alike (the
+    one-hot products of :func:`route_forest_select` do O(node_limit) times
+    the work). Same results either way."""
+    return route_forest(forest, X, feat_types, max_depth)
 
 
 def leaf_rank_targets(

@@ -276,6 +276,27 @@ in both of its tiers, in phases:
      kernels' summed time over the timed window's mean call), and another
      under CUDA's sync debug mode counts the host's synchronisations.
 
+ 16. the sampler's lowerings (no new kernel) at the width of ``bench.py``'s
+     twin (dim 5, m=50, 64 chains, node_limit 64): at N=50 the proposal
+     lowerings (``hot_style`` scatter, select, doubling; ``subspace_mode``
+     carry) and the kernel-side ones (batched with select proposals, the
+     aug, lowrank and coeff scans, the factor, leaf and pair refreshes, the
+     chol and woodbury backends); at N=512 lowrank, coeff, factor, pair and
+     batched. For each, from one shared state (the default, 20 steps from
+     empty forests) and one list of draws: (a) five steps against the
+     default's, bit-identical forests, leaves and accepts for the proposal
+     lowerings, and for the kernel-side ones each step taken from the
+     default's state (its carry built for the lowering) with at least 99% of
+     the tree decisions the default's and the MLL within rtol 1e-4 / atol
+     1e-3 where a chain's decisions agree; (b) after 50 free steps, the
+     leaves equal a fresh routing and the carry (K^-1, L of K or of A, K,
+     the subspaces) a float64 rebuild; (c) K1's and K2's launches in those
+     50 steps and their init exactly as the lowering implies, each shape's
+     first input held against the plain version as in phase 14; (d)
+     steps/s/chip through ``bench.measure`` (one untimed and one timed call
+     of 20 steps) beside the default's, and the host's synchronisations of
+     one step (CUDA's sync debug mode).
+
 The whole run takes eleven to nineteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
@@ -295,8 +316,8 @@ SMC, scoring and CG parts, and phase 14's "forest gram api", "bo_largen
 N=4080", "largen ask lowrank N=8192", "largen predict N=8192", "mcmc_record
 N=50", "tempered_smc single", "tempered_smc sharded, 1 NCCL rank",
 "bandit_bo", "regression_hpo", "samples_ablation", "priors_and_proposals"
-and "scaling, <n> rank(s), rank 0", and phase 15's "bench N=50", "bench N=50
-cat" and "bench N=512"), error, times
+and "scaling, <n> rank(s), rank 0", phase 15's "bench N=50", "bench N=50
+cat" and "bench N=512", and phase 16's "lowering <name> N=<n>"), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -316,6 +337,7 @@ import time
 
 import numpy as np
 
+SCRIPT_T0 = time.perf_counter()  # the script's clock, for phase 16's rates
 SLICE_CHAINS = 64
 SLICE_TREES = 50
 DENSE_NS = (50, 200)
@@ -3078,6 +3100,282 @@ def phase_bench(torch, dev, smi):
     return launches, times
 
 
+# --- phase 16: the sampler's lowerings ---------------------------------------------
+LOWERING_STEPS, LOWERING_FREE_STEPS, LOWERING_WARM = 5, 50, 20
+# name -> SamplerParams overrides. At N=50 every configuration of the
+# reference's test_hot_styles_agree_on_trajectory and
+# test_backends_agree_on_trajectory (the default, auto/rank1, is the base)
+# whose port lowering differs (doubling_fused resolves to doubling; the port
+# does not read gram_dtype, so coeff_factor_bf16 is coeff_factor), with the
+# carry and the explicit pair refresh; at N=512 the dense-carry lowerings a
+# user pins there (scan auto is lowrank at 256-1023 under a dense refresh).
+PROPOSAL_SIDE = {"scatter": dict(hot_style="scatter"), "select": dict(hot_style="select"),
+                 "doubling": dict(hot_style="doubling"), "carry": dict(subspace_mode="carry")}
+KERNEL_SIDE_50 = {
+    "select_fused": dict(hot_style="select", refresh_style="batched"),
+    "aug": dict(scan_style="aug"), "lowrank": dict(scan_style="lowrank"),
+    "coeff": dict(scan_style="coeff"), "factor": dict(scan_style="coeff", refresh_style="factor"),
+    "leaf": dict(scan_style="coeff", refresh_style="leaf"), "pair": dict(refresh_style="pair"),
+    "chol": dict(kernel_backend="chol"), "woodbury": dict(kernel_backend="woodbury"),
+}
+KERNEL_SIDE_512 = {
+    "lowrank": dict(scan_style="lowrank"),
+    "coeff": dict(scan_style="coeff", refresh_style="onesolve"),
+    "factor": dict(refresh_style="factor"), "pair": dict(refresh_style="pair"),
+    "batched": dict(refresh_style="batched"),
+}
+MLL_RTOL, MLL_ATOL = 1e-4, 1e-3  # the repo's maintained-vs-rebuilt MLL tolerance
+RATE_DEADLINE_S = 1080  # phase 16's rates end before this second of the script
+DECISION_SHARE = 0.99
+
+
+def _expected_launches(params, n, steps):
+    """K1 and K2 launches of an init and ``steps`` steps of a lowering at
+    padded N=n (K2 in 256-blocks above 256; m + 1 factorizations a chol
+    step; 2m capacitance factorizations and a rebuild a woodbury step)."""
+    blocks = -(-n // 256)
+    m = params.num_trees
+    if params.kernel_backend == "chol":
+        return {"gram": 1, "chol_inv": blocks * (1 + steps * (m + 1))}
+    if params.kernel_backend == "woodbury":
+        return {"gram": 1 + steps, "chol_inv": blocks * (1 + steps) + steps * 2 * m}
+    if params.refresh_style == "leaf":
+        return {"gram": 0, "chol_inv": 1 + steps}  # R <= 256 here
+    per_step = 2 if params.refresh_style == "pair" else 1
+    return {"gram": 1 + steps, "chol_inv": blocks * (1 + per_step * steps)}
+
+
+def phase_lowerings(torch, dev, smi, tf):
+    """Phase 16: every lowering of the sampler on the card, at the width of
+    ``bench.py``'s twin (dim 5, m=50, 64 chains, node_limit 64), at N=50 and
+    at 512. Returns the launches of each path and the kernels' times at the
+    paths' new shapes."""
+    import collections
+    import warnings
+    from pathlib import Path
+
+    from bark_tpu_torch.benchmarks import bench
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.fitting.sampler import (
+        BARKModel, _leaf_budget, _leaf_Z, _resolve_styles, draw_step, init_chain_state,
+        run_chain, step_with_info,
+    )
+    from bark_tpu_torch.fitting.traversal import all_node_subspaces
+    from bark_tpu_torch.forest import create_empty_forest, route_forest
+    from bark_tpu_torch.ops.chol import chol_inv_cuda
+    from bark_tpu_torch.ops.gram import gram_cuda, gram_plain
+    from bark_tpu_torch.ops.linalg import JITTER
+
+    t_phase = time.perf_counter()
+    launches, times, held, table = {}, {}, set(), []
+    rows, defaults = {}, {}
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+
+    def rebuild_check(tag, st, params, X, y):
+        """(b): the carry after the free run against a float64 rebuild from
+        a fresh routing, as phases 5-6 and 10 check theirs."""
+        n = X.shape[0]
+        fresh = route_forest(st.forest, X, ft)
+        require(torch.equal(fresh, st.leaves), f"{tag}: leaves equal a fresh routing")
+        nu, scale = (JITTER + st.noise).double(), st.scale.double()
+        gram = gram_plain(fresh, fresh).double()
+        K = scale[:, None, None] * gram + torch.diag_embed(nu[:, None].expand(-1, n))
+        L64 = torch.linalg.cholesky(K)
+        logdet = 2.0 * torch.log(torch.diagonal(L64, dim1=-2, dim2=-1)).sum(-1)
+        kern, what = st.kern, {}
+        if kern.K is not None:
+            err = (kern.K.double() - K).abs()
+            require(bool((err <= 1e-5 + 1e-5 * K.abs()).all()),
+                    f"{tag}: K within 1e-5 (abs and rel) of the rebuild ({err.max().item()})")
+            what["K"] = err.max().item()
+        elif kern.K_inv is not None:
+            K_inv = torch.cholesky_inverse(L64)
+            err = (kern.K_inv.double() - K_inv).abs()
+            ok = bool((err <= 2e-3 + 1e-3 * K_inv.abs()).all())
+            require(ok, f"{tag}: K^-1 within rtol 1e-3 / atol 2e-3 of the rebuild "
+                        f"(max |diff| {err.max().item()})")
+            what["K_inv"] = err.max().item()
+        elif params.refresh_style == "leaf":
+            budget = _leaf_budget(params, n)
+            Z, _ = _leaf_Z(st.forest, fresh, budget, torch.ones(n, device=dev))
+            gamma = scale / params.num_trees
+            A = (Z.transpose(1, 2) @ Z).double() + (nu / gamma)[:, None, None] * torch.eye(
+                budget, dtype=torch.float64, device=dev)
+            La = torch.linalg.cholesky(A)
+            what["L"] = rel_err(torch, kern.L.double(), La)
+            require(what["L"] <= REL_BOUND, f"{tag}: |L - rebuild|/max|L| = {what['L']}")
+        else:  # the factor refresh: L of K
+            what["L"] = rel_err(torch, kern.L.double(), L64)
+            require(what["L"] <= REL_BOUND, f"{tag}: |L - rebuild|/max|L| = {what['L']}")
+        if kern.K_logdet is not None:
+            d = (kern.K_logdet.double() - logdet).abs()
+            require(bool((d <= 1e-3 + 1e-4 * logdet.abs()).all()),
+                    f"{tag}: logdet within rtol 1e-4 / atol 1e-3 ({d.max().item()})")
+            what["logdet"] = d.max().item()
+        if st.subspaces is not None:
+            want = all_node_subspaces(st.forest, bounds, ft, params.max_depth)
+            act = st.forest.active
+            require(torch.equal(st.subspaces[act], want[act]),
+                    f"{tag}: carried subspaces equal a fresh walk on every active node")
+            what["subspaces"] = "exact"
+        return what
+
+    def syncs_per_step(st, params, X, y):
+        """Host synchronisations of one step (CUDA's sync debug mode)."""
+        draws = draw_step(torch.Generator(device=dev).manual_seed(99), st.noise.shape[0],
+                          params, dev)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step_with_info(st, X, y, bounds, ft, params, draws)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                   if "called a synchronizing" in str(w.message))
+
+    for n in (50, 512):
+        X_np = tf.domain.sample(n, np.random.default_rng(0))
+        y_np = tf.f(X_np)
+        X = torch.as_tensor(X_np, device=dev)
+        y = torch.as_tensor((y_np - y_np.mean()) / y_np.std(), dtype=torch.float32, device=dev)
+        base = SamplerParams(num_chains=SLICE_CHAINS, num_trees=SLICE_TREES)
+        # the shared state: the default lowering, LOWERING_WARM steps from empty forests
+        empty = BARKModel(
+            create_empty_forest(SLICE_TREES, base.node_limit, (SLICE_CHAINS,), dev),
+            torch.full((SLICE_CHAINS,), 0.1, device=dev), torch.ones(SLICE_CHAINS, device=dev))
+        warm = run_chain(torch.Generator(device=dev).manual_seed(n), empty, X, y, bounds, ft,
+                         base.with_(warmup_steps=LOWERING_WARM - 1, num_samples=1,
+                                    steps_per_sample=1)).state
+        shared = (warm.forest, warm.noise, warm.scale)
+        gen = torch.Generator(device=dev).manual_seed(1000 + n)
+        draws = [draw_step(gen, SLICE_CHAINS, base, dev) for _ in range(LOWERING_FREE_STEPS)]
+        # the default's own trajectory over the compared steps
+        default = [init_chain_state(*shared, X, y, ft, base, bounds=bounds)]
+        infos = []
+        for t in range(LOWERING_STEPS):
+            st, info = step_with_info(default[-1], X, y, bounds, ft, base, draws[t])
+            default.append(st)
+            infos.append(info)
+        resolved = _resolve_styles(base, n)
+        defaults[n] = f"default ({resolved.scan_style}, {resolved.refresh_style})"
+
+        configs = ({**PROPOSAL_SIDE, **KERNEL_SIDE_50} if n == 50 else KERNEL_SIDE_512)
+        for name, overrides in configs.items():
+            t0 = time.perf_counter()
+            params = base.with_(**overrides)
+            r = _resolve_styles(params, n)
+            path = f"lowering {name} N={n}"
+            # (a) the first LOWERING_STEPS steps against the default
+            if name in PROPOSAL_SIDE:
+                st = init_chain_state(*shared, X, y, ft, params, bounds=bounds)
+                for t in range(LOWERING_STEPS):
+                    st, info = step_with_info(st, X, y, bounds, ft, params, draws[t])
+                    want = default[t + 1]
+                    same = (all(torch.equal(a, b) for a, b in zip(st.forest, want.forest))
+                            and torch.equal(st.leaves, want.leaves)
+                            and torch.equal(info.tree_accepts, infos[t].tree_accepts)
+                            and torch.equal(info.hyper_accept, infos[t].hyper_accept))
+                    require(same, f"{path} step {t}: forests, leaves and accepts bit-identical "
+                                  f"to the default")
+                agree = f"bit-identical over {LOWERING_STEPS} steps, |mll - default| " \
+                        f"{(st.mll - want.mll).abs().max().item():.3e}"
+            else:
+                # every step from the default's state (this lowering's carry
+                # built from it), so each decision is compared from one state
+                same_dec = total = 0
+                worst = 0.0
+                for t in range(LOWERING_STEPS):
+                    st0 = init_chain_state(default[t].forest, default[t].noise,
+                                           default[t].scale, X, y, ft, params, bounds=bounds)
+                    st, info = step_with_info(st0, X, y, bounds, ft, params, draws[t])
+                    dec = info.tree_accepts == infos[t].tree_accepts
+                    same_dec += int(dec.sum())
+                    total += dec.numel()
+                    alike = dec.all(1) & (info.hyper_accept == infos[t].hyper_accept)
+                    want = default[t + 1].mll[alike]
+                    diff = (st.mll[alike] - want).abs()
+                    rel = (diff / want.abs()).max().item() if diff.numel() else 0.0
+                    require(bool((diff <= MLL_ATOL + MLL_RTOL * want.abs()).all()),
+                            f"{path} step {t}: MLL within rtol {MLL_RTOL} / atol {MLL_ATOL} of "
+                            f"the default where the decisions agree (relative {rel})")
+                    worst = max(worst, rel)
+                share = same_dec / total
+                require(share >= DECISION_SHARE, f"{path}: {share:.4f} of the tree decisions "
+                                                 f"agree with the default")
+                agree = (f"{same_dec}/{total} tree decisions as the default ({share:.4%}), MLL "
+                         f"max relative diff {worst:.3e}")
+            # (b) and (c): LOWERING_FREE_STEPS free steps from the shared state
+            gram_cuda.launches = chol_inv_cuda.launches = 0
+            with KernelRecorder() as rec:
+                st = init_chain_state(*shared, X, y, ft, params, bounds=bounds)
+                for t in range(LOWERING_FREE_STEPS):
+                    st, _ = step_with_info(st, X, y, bounds, ft, params, draws[t])
+                torch.cuda.synchronize()
+            counts = {"gram": gram_cuda.launches, "chol_inv": chol_inv_cuda.launches}
+            launches[path] = counts
+            want_counts = _expected_launches(r, n, LOWERING_FREE_STEPS)
+            require(counts == want_counts, f"{path}: launches {counts}, expected {want_counts}")
+            require(bool(torch.isfinite(st.mll).all()), f"{path}: finite MLL")
+            checked = rebuild_check(path, st, r, X, y)
+            syncs = syncs_per_step(st, params, X, y)
+            hold_recorded(torch, dev, smi, path, rec, times, held)
+            rows[(n, name)] = {"N": n, "lowering": name, "scan": r.scan_style,
+                               "refresh": r.refresh_style, "backend": r.kernel_backend,
+                               "syncs_per_step": sum(syncs.values()), "launches": counts}
+            log(f"[phase 16] {path} ({r.kernel_backend}, {r.scan_style}, {r.refresh_style}, "
+                f"{r.hot_style}, {r.subspace_mode}): (a) {agree}; (b) after "
+                f"{LOWERING_FREE_STEPS} steps vs a float64 rebuild {checked}; (c) launches "
+                f"{counts} by shape {rec.shapes}; {sum(syncs.values())} host syncs a step "
+                f"{dict(syncs)}; on {smi}; {time.perf_counter() - t0:.1f} s")
+
+    # (d) the rates through the benchmark's twin, after every check: each
+    # reading starts only if it ends before RATE_DEADLINE_S of the script (a
+    # slow host loses readings, logged as cut, never the checks); the default
+    # is read before and after the lowerings of its N (the host drifts within
+    # a call) and each lowering is reported against the mean
+    cut, cost = [], 0.0
+    for n in (50, 512):
+        def rate_of(what, **overrides):
+            nonlocal cost
+            if time.perf_counter() - SCRIPT_T0 + 1.5 * cost > RATE_DEADLINE_S:
+                cut.append(what)
+                return None
+            t0 = time.perf_counter()
+            rate = bench.measure(n_train=n, steps_per_call=20, n_calls=1, untimed_calls=1,
+                                 **overrides)["value"]
+            cost = max(cost, time.perf_counter() - t0)
+            log(f"[phase 16] (d) {what}: {rate} steps/s/chip (bench.measure, one untimed and "
+                f"one timed call of 20 steps) on {smi}")
+            return rate
+
+        default_rates = [rate_of(f"{defaults[n]} N={n}, before")]
+        configs = {**PROPOSAL_SIDE, **KERNEL_SIDE_50} if n == 50 else KERNEL_SIDE_512
+        for name, overrides in configs.items():
+            rows[(n, name)]["steps_per_s"] = rate_of(f"{name} N={n}", **overrides)
+        default_rates.append(rate_of(f"{defaults[n]} N={n}, after"))
+        read = [r for r in default_rates if r is not None]
+        mean0 = sum(read) / len(read) if read else None
+        table.append({"N": n, "lowering": defaults[n], "steps_per_s": default_rates})
+        for name in configs:
+            row = rows[(n, name)]
+            rate = row["steps_per_s"]
+            row["vs_default"] = None if rate is None or mean0 is None else round(rate / mean0, 4)
+            table.append(row)
+        log(f"[phase 16] N={n} default before and after the lowerings {default_rates} "
+            f"steps/s/chip; each lowering over their mean: "
+            f"{ {name: rows[(n, name)]['vs_default'] for name in configs} } on {smi}")
+    if cut:
+        log(f"[phase 16] cut: no rate for {cut} (the script's clock passed "
+            f"{RATE_DEADLINE_S} s)")
+    log(f"[phase 16] table {json.dumps(table)}")
+    log(f"[phase 16] {time.perf_counter() - t_phase:.1f} s")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -3533,6 +3831,11 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 15. the headline benchmark's twin ----------------------------------------
     path_launches, path_times = phase_bench(torch, dev, smi)
+    launches.update(path_launches)
+    for (kernel, name), t in path_times.items():
+        (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 16. the sampler's lowerings --------------------------------------------------
+    path_launches, path_times = phase_lowerings(torch, dev, smi, tf)
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t

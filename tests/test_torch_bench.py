@@ -148,6 +148,22 @@ def test_tiny_run_follows_the_protocol(n_train, monkeypatch):
     assert first.noise.shape == (2, 10)
 
 
+def test_one_untimed_call(monkeypatch):
+    """``untimed_calls=1``: the timed calls run on the first call's last
+    sample, the lowering given as a sampler override."""
+    calls = []
+
+    def recording(gen, model, X, y, bounds, ft, params):
+        calls.append((gen.initial_seed(), params))
+        return run_bark_sampler(gen, model, X, y, bounds, ft, params)
+
+    monkeypatch.setattr(bench, "run_bark_sampler", recording)
+    bench.measure(n_train=16, num_chains=2, steps_per_call=10, n_calls=1, num_trees=5,
+                  device="cpu", untimed_calls=1, scan_style="aug")
+    assert [seed for seed, _ in calls] == [0, 2]
+    assert all(p.scan_style == "aug" for _, p in calls)
+
+
 def test_no_card_no_run(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -208,6 +224,21 @@ def test_turns_worker_measures_the_tree_it_runs_in():
     assert bench_turns.parse_points("50,200,50c") == [
         {"n_train": 50, "cat_dim": 0}, {"n_train": 200, "cat_dim": 0},
         {"n_train": 50, "cat_dim": 2}]
+
+
+def test_turns_points_pin_lowerings():
+    """A point's sampler overrides reach ``measure`` and its tier; the
+    protocol goes to every point, outside the point's name."""
+    points = bench_turns.parse_points("512:scan_style=lowrank;refresh_style=pair,50")
+    assert points[0] == {"n_train": 512, "cat_dim": 0, "scan_style": "lowrank",
+                         "refresh_style": "pair"}
+    assert bench_turns.point_name(points[0]) == "N=512 scan_style=lowrank refresh_style=pair"
+    got = bench_turns.tier(512, scan_style="lowrank", refresh_style="pair")
+    assert (got["scan"], got["refresh"], got["backend"]) == ("lowrank", "pair", "rank1")
+    assert bench_turns.tier(50) == {"tier": "dense", "scan": "plain", "refresh": "onesolve",
+                                    "leaf_budget": None}
+    assert bench_turns._pairs("steps_per_call=20,n_calls=1", ",") == {
+        "steps_per_call": 20, "n_calls": 1}
 
 
 @pytest.mark.parametrize("config", bench.CURVE_XL, ids=bench_turns.point_name)

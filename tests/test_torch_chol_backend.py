@@ -19,6 +19,7 @@ leaves. The four ``ops/linalg`` functions run on float32 inputs in both
 packages at rtol 1e-5.
 """
 
+import dataclasses
 import importlib.util
 import os
 import subprocess
@@ -329,10 +330,12 @@ def test_resolve_styles_takes_chol_as_the_reference_does():
         port = _resolve_styles(SamplerParams(**CHOL), n)
         ref = jax_resolve(JaxParams(**CHOL), n)
         assert (port.scan_style, port.refresh_style) == (ref.scan_style, ref.refresh_style)
-    with pytest.raises(NotImplementedError):
-        _resolve_styles(SamplerParams(kernel_backend="woodbury"), 20)
-    with pytest.raises(NotImplementedError):
-        _resolve_styles(SamplerParams(hot_style="select", **CHOL), 20)
+    # the other backend and the proposal lowerings resolve as the
+    # reference does too: only rank1 has scan and refresh styles
+    for kw in (dict(kernel_backend="woodbury"), dict(hot_style="select", **CHOL)):
+        port = _resolve_styles(SamplerParams(**kw), 20)
+        ref = jax_resolve(JaxParams(**kw), 20)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), kw
 
 
 def test_chol_state_round_trips_through_numpy():

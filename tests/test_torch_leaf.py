@@ -135,8 +135,9 @@ def test_leaf_budget_matches_reference(n):
 
 @pytest.mark.parametrize("n", _N_GRID)
 def test_resolve_styles_matches_reference(n):
-    """Where the reference resolves to one of the port's two tiers the port
-    resolves alike; every other resolution raises NotImplementedError."""
+    """The port resolves every (scan, refresh) pin as the reference does,
+    the two tiers and every other lowering, and the other backends and
+    proposal lowerings come back as the reference's."""
     ran = set()
     scans = ("auto", "plain", "coeff", "lowrank", "aug")
     refreshes = ("auto", "onesolve", "leaf", "pair", "batched", "factor")
@@ -148,22 +149,17 @@ def test_resolve_styles_matches_reference(n):
             with pytest.raises(ValueError):
                 SamplerParams(**kw)
             continue
-        want = (ref.scan_style, ref.refresh_style)
-        if want in (("plain", "onesolve"), ("coeff", "leaf")):
-            got = _resolve_styles(SamplerParams(**kw), n)
-            assert dataclasses.asdict(got) == dataclasses.asdict(ref), kw
-            ran.add(want)
-        else:
-            with pytest.raises(NotImplementedError):
-                _resolve_styles(SamplerParams(**kw), n)
-    assert ran == {("plain", "onesolve"), ("coeff", "leaf")}
+        got = _resolve_styles(SamplerParams(**kw), n)
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref), kw
+        ran.add((ref.scan_style, ref.refresh_style))
+    assert {("plain", "onesolve"), ("coeff", "leaf")} <= ran
     auto = _resolve_styles(SamplerParams(), n)
     assert (auto.scan_style, auto.refresh_style) == (
         ("coeff", "leaf") if n >= 256 else ("plain", "onesolve")
     )
     for other in ({"kernel_backend": "woodbury"}, {"hot_style": "select"}, {"subspace_mode": "carry"}):
-        with pytest.raises(NotImplementedError):
-            _resolve_styles(SamplerParams(**other), n)
+        got = _resolve_styles(SamplerParams(**other), n)
+        assert dataclasses.asdict(got) == dataclasses.asdict(js._resolve_styles(JaxParams(**other), n))
 
 
 def test_over_budget_initial_forest_gives_nan_mll():

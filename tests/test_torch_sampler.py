@@ -382,25 +382,6 @@ def test_run_chain_state_consistent_with_rebuild():
     torch.testing.assert_close(run.state.kern.K_logdet, logdet, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize(
-    "n,kwargs",
-    [
-        (256, {"refresh_style": "onesolve"}),
-        (50, {"kernel_backend": "woodbury"}),
-        (50, {"scan_style": "lowrank"}),
-        (50, {"refresh_style": "pair"}),
-        (50, {"hot_style": "select"}),
-        (50, {"subspace_mode": "carry"}),
-    ],
-)
-def test_resolve_styles_runs_only_the_dense_default(n, kwargs):
-    """Anything but the two tiers' shipped lowerings (and the chol
-    oracle) raises (a pinned onesolve refresh at N=256 resolves to the
-    lowrank scan)."""
-    with pytest.raises(NotImplementedError):
-        _resolve_styles(SamplerParams(**kwargs), n)
-
-
 def test_resolve_styles_resolves_auto():
     p = _resolve_styles(SamplerParams(), 255)
     assert (p.scan_style, p.refresh_style) == ("plain", "onesolve")

@@ -1,4 +1,5 @@
-"""The profiler summary of ``benchmarks/kernel_timing.py``, on fake events.
+"""The profiler summary of ``benchmarks/kernel_timing.py``, on fake events,
+and its bounds.
 
 ``device_ms`` times a call from ``torch.profiler``'s ``key_averages()``,
 which sometimes drops events. ``summarise_events`` turns those averages into
@@ -11,7 +12,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from bark_tpu_torch.benchmarks.kernel_timing import summarise_events
+from bark_tpu_torch.benchmarks.kernel_timing import k1_bound, summarise_events
 
 CALLS = 20
 
@@ -186,3 +187,17 @@ def test_event_ms_times_calls_queued_behind_a_spin():
     assert len(spins) == 3 and all(c >= 1_000_000 for _, c in spins)
     assert log[:3] == [spins[0], "record", "record"]
     assert ms == pytest.approx(8.0 / 4)  # median of 8, 4 and 10 ms over 4 calls
+
+
+@pytest.mark.parametrize("b, n, symmetric, want_ms, bound_by", [
+    # symmetric: the kernel computes N (N + 1) / 2 pairs and mirrors the rest,
+    # so the bytes bind at 512 (73.7 MB over 3.35 TB/s)
+    (64, 512, True, 4.0 * (64 * 512 * 50 + 512 + 64 * 512 * 512) / 3.35e9, "bytes"),
+    # two leaves tensors: all N * N pairs, two operations each, over 67 TFLOP/s
+    (64, 512, False, 2.0 * 64 * 512 * 512 * 50 / 67e9, "operations"),
+    (64, 50, True, 4.0 * (64 * 50 * 50 + 50 + 64 * 50 * 50) / 3.35e9, "bytes"),
+])
+def test_k1_bound_counts_the_pairs_the_kernel_computes(b, n, symmetric, want_ms, bound_by):
+    ms, by = k1_bound(b, n, n, 50, symmetric, masked=True)
+    assert by == bound_by
+    assert ms == pytest.approx(want_ms, rel=1e-12)
