@@ -109,6 +109,7 @@ from bark_tpu_torch.ops.linalg import (
     kernel_matrix,
     masked_mll,
 )
+from bark_tpu_torch.utils.profiling import annotate
 
 
 def _leaf_budget(params: SamplerParams, n: int) -> int:
@@ -847,10 +848,9 @@ _SCANS = {"plain": _scan_plain, "aug": _scan_aug, "lowrank": _scan_lowrank,
           "coeff": _scan_coeff}
 
 
-def _tree_moves_rank1(
-    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
-):
-    """m tree moves of the rank1 backend: the proposal batch, the update
+def _tree_moves_rank1(state, packed0, batch, y, mask, pad_count, params, beta=1.0):
+    """m tree moves of the rank1 backend on the step's proposal batch
+    (``packed0``, ``batch`` from :func:`_propose_all_trees`): the update
     patterns, then the move scan of ``params.scan_style`` (see
     :data:`_SCANS`). Every move's kernel delta is exactly rank 2 (see
     :func:`_update_patterns`); the refresh rebuilds the carry exactly, so
@@ -858,7 +858,6 @@ def _tree_moves_rank1(
 
     Returns (forest, leaves, subspaces, accepts (C, m), log_alpha (C, m)).
     """
-    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
     W_pat = _update_patterns(packed0, batch, mask)
     scan = _SCANS[params.scan_style]
     accepts, log_alphas = scan(state, batch, W_pat, y.reshape(-1), mask, pad_count, params, beta)
@@ -867,9 +866,7 @@ def _tree_moves_rank1(
     return forest, leaves, subs, accepts, torch.stack(log_alphas, 1)
 
 
-def _tree_moves_chol(
-    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
-):
+def _tree_moves_chol(state, packed0, batch, y, mask, pad_count, params, beta=1.0):
     """m tree moves on the exact kernel matrix, one factorization a move.
 
     Move j adds its exact delta ``(scale/m) (A_new - A_cur)``, the
@@ -885,7 +882,6 @@ def _tree_moves_chol(
     K, mll).
     """
     s_over_m = (state.scale / params.num_trees)[:, None, None]
-    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
     y_flat = y.reshape(-1)
     K, cur_mll = state.kern.K, state.mll
     log_u = torch.log(batch.u_accept)
@@ -932,9 +928,7 @@ def _woodbury_update(K_inv, K_logdet, U, eye, subtract):
     return K_inv_new, K_logdet + logdet_M
 
 
-def _tree_moves_woodbury(
-    state, X, y, mask, pad_count, bounds, feat_types, params, noise, beta=1.0
-):
+def _tree_moves_woodbury(state, packed0, batch, y, mask, pad_count, params, beta=1.0):
     """m tree moves of the woodbury backend, the original BARK algorithm.
 
     The kernel of tree j is (scale/m) U U^T with U the one-hot of each
@@ -950,9 +944,8 @@ def _tree_moves_woodbury(
     K^-1, logdet K, mll).
     """
     num_cols = params.node_limit // 2
-    packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, noise)
     dtype = mask.dtype
-    cols = torch.arange(num_cols, device=X.device)
+    cols = torch.arange(num_cols, device=mask.device)
     row_scale = torch.sqrt(state.scale / params.num_trees)[:, None] * mask  # (C, N)
 
     def indicators(packed, leavesT):
@@ -964,7 +957,7 @@ def _tree_moves_woodbury(
 
     U_cur = indicators(packed0, batch.cur_leavesT)
     U_new = indicators(batch.new_packed, batch.new_leavesT)
-    eye = torch.eye(num_cols, dtype=dtype, device=X.device)
+    eye = torch.eye(num_cols, dtype=dtype, device=mask.device)
     y_flat = y.reshape(-1)
     K_inv, K_logdet, cur_mll = state.kern.K_inv, state.kern.K_logdet, state.mll
     log_u = torch.log(batch.u_accept)
@@ -1091,47 +1084,53 @@ def step_with_info(
     (new_noise, new_scale), log_q_hyper = get_noise_scale_proposal(
         draws.z_noise, draws.z_scale, state.noise, state.scale, params
     )
-    args = (state, X, y, mask, pad_count, bounds, feat_types, params, draws.proposal, beta)
-    if params.kernel_backend == "chol":
-        forest, leaves, subs, accepts, tree_log_alpha, K, cur_mll = _tree_moves_chol(*args)
-        # the noise move rescales the exact K elementwise: no Gram rebuild,
-        # one more factorization
-        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-        gram_part = K - (JITTER + state.noise)[:, None, None] * eye
-        K_hyp = (new_scale / state.scale)[:, None, None] * gram_part + (
-            JITTER + new_noise
-        )[:, None, None] * eye
-        new_mll, _ = _chol_mll(blocked_cholesky(K_hyp)[0], y_flat, new_noise, pad_count)
-        kern_of = lambda acc: KernState(  # noqa: E731
-            K_inv=None, K_logdet=None, K=torch.where(acc[:, None, None], K_hyp, K))
-    elif params.kernel_backend == "woodbury":
-        (forest, leaves, subs, accepts, tree_log_alpha, K_inv, K_logdet,
-         cur_mll) = _tree_moves_woodbury(*args)
-        new_inv, new_logdet = chol_inv_logdet(
-            kernel_matrix(_gram(leaves, mask, params), new_noise, new_scale))
-        new_mll = masked_mll(new_inv, new_logdet, y_flat, new_noise, pad_count)
-        kern_of = lambda acc: KernState(  # noqa: E731
-            K_inv=torch.where(acc[:, None, None], new_inv, K_inv),
-            K_logdet=torch.where(acc, new_logdet, K_logdet))
-    else:
-        forest, leaves, subs, accepts, tree_log_alpha = _tree_moves_rank1(*args)
-        cur_mll, new_mll, kern_of = _refresh(
-            forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count, params,
-        )
+    backend = params.kernel_backend
+    moves = {"chol": _tree_moves_chol, "woodbury": _tree_moves_woodbury}.get(
+        backend, _tree_moves_rank1)
+    with annotate("bark.step.propose"):
+        packed0, batch = _propose_all_trees(state, X, feat_types, bounds, params, draws.proposal)
+    with annotate("bark.step.scan"):
+        forest, leaves, subs, accepts, tree_log_alpha, *carry = moves(
+            state, packed0, batch, y, mask, pad_count, params, beta)
+    with annotate("bark.step.refresh"):
+        if backend == "chol":
+            K, cur_mll = carry
+            # the noise move rescales the exact K elementwise: no Gram rebuild,
+            # one more factorization
+            eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+            gram_part = K - (JITTER + state.noise)[:, None, None] * eye
+            K_hyp = (new_scale / state.scale)[:, None, None] * gram_part + (
+                JITTER + new_noise
+            )[:, None, None] * eye
+            new_mll, _ = _chol_mll(blocked_cholesky(K_hyp)[0], y_flat, new_noise, pad_count)
+            kern_of = lambda acc: KernState(  # noqa: E731
+                K_inv=None, K_logdet=None, K=torch.where(acc[:, None, None], K_hyp, K))
+        elif backend == "woodbury":
+            K_inv, K_logdet, cur_mll = carry
+            new_inv, new_logdet = chol_inv_logdet(
+                kernel_matrix(_gram(leaves, mask, params), new_noise, new_scale))
+            new_mll = masked_mll(new_inv, new_logdet, y_flat, new_noise, pad_count)
+            kern_of = lambda acc: KernState(  # noqa: E731
+                K_inv=torch.where(acc[:, None, None], new_inv, K_inv),
+                K_logdet=torch.where(acc, new_logdet, K_logdet))
+        else:
+            cur_mll, new_mll, kern_of = _refresh(
+                forest, leaves, state, new_noise, new_scale, X, y_flat, mask, pad_count, params,
+            )
 
-    log_alpha = log_q_hyper + _tempered(beta, new_mll - cur_mll)
-    accept = torch.log(draws.u_hyper) <= torch.minimum(
-        log_alpha, torch.zeros_like(log_alpha)
-    )
-    new_state = ChainState(
-        forest=forest,
-        leaves=leaves,
-        noise=torch.where(accept, new_noise, state.noise),
-        scale=torch.where(accept, new_scale, state.scale),
-        kern=kern_of(accept),
-        mll=torch.where(accept, new_mll, cur_mll),
-        subspaces=subs,
-    )
+        log_alpha = log_q_hyper + _tempered(beta, new_mll - cur_mll)
+        accept = torch.log(draws.u_hyper) <= torch.minimum(
+            log_alpha, torch.zeros_like(log_alpha)
+        )
+        new_state = ChainState(
+            forest=forest,
+            leaves=leaves,
+            noise=torch.where(accept, new_noise, state.noise),
+            scale=torch.where(accept, new_scale, state.scale),
+            kern=kern_of(accept),
+            mll=torch.where(accept, new_mll, cur_mll),
+            subspaces=subs,
+        )
     info = StepInfo(
         tree_accepts=accepts, tree_log_alpha=tree_log_alpha,
         hyper_accept=accept, hyper_log_alpha=log_alpha,
@@ -1190,15 +1189,16 @@ def run_chain(
 
     def advance(state):
         nonlocal tree_acc, hyper_acc, n_steps
-        step_draws = (
-            draw_step(generator, c, params, X.device) if draws is None
-            else draws[n_steps].to(X.device)
-        )
-        state, info = step_with_info(
-            state, X, y, bounds, feat_types, params, step_draws, mask
-        )
-        tree_acc = tree_acc + info.tree_accepts.sum(1)
-        hyper_acc = hyper_acc + info.hyper_accept
+        with annotate("bark.step"):
+            step_draws = (
+                draw_step(generator, c, params, X.device) if draws is None
+                else draws[n_steps].to(X.device)
+            )
+            state, info = step_with_info(
+                state, X, y, bounds, feat_types, params, step_draws, mask
+            )
+            tree_acc = tree_acc + info.tree_accepts.sum(1)
+            hyper_acc = hyper_acc + info.hyper_accept
         n_steps += 1
         return state
 

@@ -62,6 +62,7 @@ from bark_tpu_torch.strategies.baselines import (
     smac_strategy,
 )
 from bark_tpu_torch.strategies.capabilities import validate_domain
+from bark_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -142,70 +143,73 @@ class TreeKernelStrategy:
         """Propose the next candidate, ordinal-encoded ``(1, D)``."""
         if candidate_count != 1:
             raise ValueError("BARK proposes single candidates")
-        if not self.has_sufficient_experiments() or not self.surrogate.is_fitted:
-            return sample_feasible(self.domain, 1, self._rng)
+        with annotate("bark.ask"):
+            if not self.has_sufficient_experiments() or not self.surrogate.is_fitted:
+                return sample_feasible(self.domain, 1, self._rng)
 
-        try:
-            candidate = self._propose_once(use_ts=self.acq_backend == "thompson")
-            if self.dedup and self._is_duplicate(candidate):
-                # The leaf-box-centered LCB optimum is piecewise constant:
-                # once the incumbent's box dominates, every ask re-centers
-                # the same point and the BO loop stalls. A Thompson draw
-                # from the exact leaf-space posterior breaks the tie by
-                # optimizing a different (sampled) objective.
-                candidate = self._propose_once(use_ts=True)
-                if self._is_duplicate(candidate):
-                    logger.info(
-                        "Duplicate proposal persisted through the Thompson "
-                        "fallback; proposing a feasible random candidate."
-                    )
-                    candidate = sample_feasible(self.domain, 1, self._rng)[0]
-        except AcquisitionFailure:
-            self.fallbacks += 1
-            logger.warning(
-                "Failed to optimize the acquisition, proposing a random candidate.",
-                exc_info=True,
-            )
-            return sample_feasible(self.domain, 1, self._rng)
-        self._last_proposal = candidate
-        return candidate[None, :]
+            try:
+                candidate = self._propose_once(use_ts=self.acq_backend == "thompson")
+                if self.dedup and self._is_duplicate(candidate):
+                    # The leaf-box-centered LCB optimum is piecewise constant:
+                    # once the incumbent's box dominates, every ask re-centers
+                    # the same point and the BO loop stalls. A Thompson draw
+                    # from the exact leaf-space posterior breaks the tie by
+                    # optimizing a different (sampled) objective.
+                    candidate = self._propose_once(use_ts=True)
+                    if self._is_duplicate(candidate):
+                        logger.info(
+                            "Duplicate proposal persisted through the Thompson "
+                            "fallback; proposing a feasible random candidate."
+                        )
+                        candidate = sample_feasible(self.domain, 1, self._rng)[0]
+            except AcquisitionFailure:
+                self.fallbacks += 1
+                logger.warning(
+                    "Failed to optimize the acquisition, proposing a random candidate.",
+                    exc_info=True,
+                )
+                return sample_feasible(self.domain, 1, self._rng)
+            self._last_proposal = candidate
+            return candidate[None, :]
 
     def _propose_once(self, use_ts: bool) -> np.ndarray:
         """One acquisition build + search; returns the (D,) candidate."""
         sur = self.surrogate
         train_x, train_y = sur.train_data
         args = (sur.model, train_x, train_y, self._feat_types, sur.params.max_depth)
-        if use_ts:
-            # one exact posterior function draw per ask (the leaf-space
-            # closed form); fresh draws give the exploration distribution
-            forest = sur.model.forest
-            r = forest.num_trees * ((forest.node_limit + 1) // 2)
-            pick, eps = draw_acquisition_ts(
-                self._generator, sur.model.noise.numel(), r, self.device
+        with annotate("bark.ask.build"):
+            if use_ts:
+                # one exact posterior function draw per ask (the leaf-space
+                # closed form); fresh draws give the exploration distribution
+                forest = sur.model.forest
+                r = forest.num_trees * ((forest.node_limit + 1) // 2)
+                pick, eps = draw_acquisition_ts(
+                    self._generator, sur.model.noise.numel(), r, self.device
+                )
+                acq = build_acquisition_ts(pick, eps, *args, train_mask=sur.train_mask)
+            else:
+                # the factored build never forms (S, N, N): past the dense
+                # memory wall it is the only way ask() completes at all
+                use_lr = self.acq_backend == "lowrank" or (
+                    self.acq_backend == "auto" and train_x.shape[0] > LR_THRESHOLD
+                )
+                build = build_acquisition_lr if use_lr else build_acquisition
+                acq = build(*args, train_mask=sur.train_mask)
+        with annotate("bark.ask.search"):
+            draws = draw_search(
+                self._generator, self.num_candidates, self.domain.dim, self.num_rounds,
+                device=self.device,
             )
-            acq = build_acquisition_ts(pick, eps, *args, train_mask=sur.train_mask)
-        else:
-            # the factored build never forms (S, N, N): past the dense
-            # memory wall it is the only way ask() completes at all
-            use_lr = self.acq_backend == "lowrank" or (
-                self.acq_backend == "auto" and train_x.shape[0] > LR_THRESHOLD
+            candidate, _ = propose(
+                draws,
+                acq,
+                self.domain,
+                self._feat_types,
+                kappa=self.kappa,
+                max_depth=sur.params.max_depth,
+                rng=self._rng,
+                seeds=self._warm_start_seeds(),
             )
-            build = build_acquisition_lr if use_lr else build_acquisition
-            acq = build(*args, train_mask=sur.train_mask)
-        draws = draw_search(
-            self._generator, self.num_candidates, self.domain.dim, self.num_rounds,
-            device=self.device,
-        )
-        candidate, _ = propose(
-            draws,
-            acq,
-            self.domain,
-            self._feat_types,
-            kappa=self.kappa,
-            max_depth=sur.params.max_depth,
-            rng=self._rng,
-            seeds=self._warm_start_seeds(),
-        )
         return np.asarray(candidate)
 
     def _is_duplicate(self, candidate: np.ndarray, rel_tol: float = 1e-6) -> bool:

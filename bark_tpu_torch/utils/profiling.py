@@ -1,4 +1,4 @@
-"""Tracing and profiling hooks: device traces, annotations, throughput.
+"""Tracing hooks: device traces and the program's own spans.
 
 Counterpart of ``bark_tpu/utils/profiling.py`` on ``torch.profiler``:
 
@@ -6,23 +6,24 @@ Counterpart of ``bark_tpu/utils/profiling.py`` on ``torch.profiler``:
     timeline of the enclosed block and writes it as a Chrome trace (open
     in Perfetto or ``chrome://tracing``); the profile object is yielded,
     so ``key_averages()`` gives the time by kernel;
-  - :func:`annotate` names a region (``record_function``), so BO phases
-    (fit, acquire, predict) show in the trace;
-  - :class:`ThroughputMeter` measures units per second across calls and
-    synchronises the CUDA device at both ends of a timed region, since
-    PyTorch returns before the device has finished.
+  - :func:`annotate` names a region of the host's work. The program opens
+    its spans with it: ``bark.step`` (one sampler step of ``run_chain``)
+    with ``bark.step.propose`` (the proposal batch), ``bark.step.scan``
+    (the move scan) and ``bark.step.refresh`` (the noise move and the new
+    state) inside it, and ``bark.ask`` (one ask of ``TreeKernelStrategy``)
+    with ``bark.ask.build`` (the acquisition state) and ``bark.ask.search``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -47,42 +48,14 @@ def trace(log_dir: str):
     prof.export_chrome_trace(str(out / TRACE_FILE))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """A named region of a trace (``torch.profiler.record_function``)."""
-    with record_function(name):
-        yield
+    """A named span of the host's work, recorded while a ``torch.profiler``
+    records; a shared null context (one flag check) otherwise.
 
-
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-class ThroughputMeter:
-    """Units per second: ``meter.start(); ...; meter.stop(n_units)``.
-
-    Both ends synchronise the CUDA device, so a region counts the device
-    work launched inside it and none from before; ``rate`` is the total
-    over every region."""
-
-    def __init__(self):
-        self.total_units = 0.0
-        self.total_seconds = 0.0
-        self._t0 = None
-
-    def start(self):
-        _sync()
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self, n_units: float) -> float:
-        _sync()
-        dt = time.perf_counter() - self._t0
-        self.total_units += n_units
-        self.total_seconds += dt
-        return n_units / dt
-
-    @property
-    def rate(self) -> float:
-        return self.total_units / max(self.total_seconds, 1e-12)
+    The span is a plain host operation of the capture (``cpu_op``, not a
+    user annotation), so the profiler mirrors nothing of it onto the
+    device's timeline; it nests by containment on its thread, with its
+    start and end on the profiler's clock."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)

@@ -1,0 +1,8 @@
+"""The device's idle ms a step while the host is in the move scan (the span
+``bark.step.scan``, innermost at an idle stretch's midpoint; ``lib/spans.py``)."""
+
+from perfbench.lib import spans
+
+
+def read(ctx):
+    return spans.idle_ms_per_step(ctx, "bark.step.scan")

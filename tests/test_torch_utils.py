@@ -78,13 +78,3 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     assert "square" in names
     assert any(e.key == "square" for e in prof.key_averages())
 
-
-def test_throughput_meter():
-    meter = profiling.ThroughputMeter()
-    meter.start()
-    torch.randn(256, 256) @ torch.randn(256, 256)
-    rate = meter.stop(1024)
-    assert rate > 0 and meter.rate == pytest.approx(rate)
-    meter.start()
-    rate2 = meter.stop(512)
-    assert meter.total_units == 1536 and meter.rate > 0 and rate2 > 0
