@@ -70,6 +70,16 @@ def k2_bound(b: int, n: int):
     return bound(3 * 4.0 * b * n * n, b * 2.0 * n**3 / 3.0)
 
 
+def k3_bound(c: int, n: int, m: int):
+    """K3's bound for c chains of m moves at N rows: K^-1, y, the patterns and
+    the per-chain and per-move scalars read once, the accepts and log alphas
+    written once; 8 m N^2 flops a chain (two products of K^-1 with the
+    move's rank-2 indicator and the rank-2 update, as
+    ``perfbench/roofline/counts.dense_step_flops`` counts the scan)."""
+    reads = 4.0 * (c * n * n + n + c * m * n * 2 + 4 * c + 2 * c * m)
+    return bound(reads + 5.0 * c * m, 8.0 * c * m * n * n)
+
+
 def call_ms(torch, fn, reps: int = 25, inner: int = 10, warmup: int = 5) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` calls / inner."""
     for _ in range(warmup):

@@ -44,15 +44,17 @@ parent chain; all give the same proposals bit for bit.
 
 Every factorization goes through the Cholesky-with-inverse kernel K2
 (``ops.chol``, through ``ops.linalg.blocked_cholesky``/``chol_inv``), and
-every Gram through the agreement kernel K1 (``ops.gram``). The reference's
-``gram_dtype``, ``chol_block``, ``chol_impl`` and ``scan_unroll`` choose
-among XLA lowerings of the same arithmetic; they are accepted and not read
-here: K1's counts are exact whatever the one-hot dtype, K2 factors any
-block, and the move loop is a Python loop.
+every Gram through the agreement kernel K1 (``ops.gram``); on the card the
+plain move scan is one launch of the scan kernel K3 (``ops.scan``). The
+reference's ``gram_dtype``, ``chol_block``, ``chol_impl`` and
+``scan_unroll`` choose among XLA lowerings of the same arithmetic; they are
+accepted and not read here: K1's counts are exact whatever the one-hot
+dtype, K2 factors any block, and the move loop is a Python loop or K3.
 
 Every tensor carries a leading chain dimension (the reference ``vmap``-ed
 over chains) and the sequential move scan is a Python loop over the m
-trees, all chains in lockstep. The float dtype follows ``y``: float32 on
+trees, all chains in lockstep (K3 runs each chain's loop in a block of
+its own). The float dtype follows ``y``: float32 on
 the card (the kernels are float32), float64 on the CPU for tests.
 
 One step (:func:`step`):
@@ -109,6 +111,7 @@ from bark_tpu_torch.ops.linalg import (
     kernel_matrix,
     masked_mll,
 )
+from bark_tpu_torch.ops.scan import move_scan_cuda
 from bark_tpu_torch.utils.profiling import annotate
 
 
@@ -667,8 +670,23 @@ def _scan_plain(state, batch, W_pat, y, mask, pad_count, params, beta):
 
     Per move, with W the scaled update patterns: V = K^-1 W, the 2x2
     capacitance M, and K^-1, logdet K, K^-1 y and y^T K^-1 y updated in
-    O(N^2).
+    O(N^2). CUDA tensors take the kernel K3 (``ops.scan``: the whole scan
+    of every chain in one launch, returning (C, m) tensors); CPU tensors
+    its twin, :func:`_scan_plain_loop`.
     """
+    if not W_pat.is_cuda:
+        return _scan_plain_loop(state, batch, W_pat, y, mask, pad_count, params, beta)
+    h, mll_corr = _scan_scales(state, pad_count, params)
+    beta = beta.to(h.dtype).expand_as(h) if torch.is_tensor(beta) else torch.full_like(h, beta)
+    args = (state.kern.K_inv, y, W_pat, h, state.kern.K_logdet, mll_corr, batch.log_q_prior,
+            batch.u_accept, beta)
+    return move_scan_cuda(*(t.contiguous() for t in args))  # SMC's beta is an expanded view
+
+
+def _scan_plain_loop(state, batch, W_pat, y, mask, pad_count, params, beta):
+    """The plain scan as a torch loop over the m moves, all chains in
+    lockstep: K3's twin and oracle, and the path of CPU tensors. Returns
+    one (C,) tensor of accepts and of log alphas a move."""
     h, mll_corr = _scan_scales(state, pad_count, params)
     W_all = h[:, None, None, None] * W_pat
     K_inv = state.kern.K_inv
@@ -861,9 +879,10 @@ def _tree_moves_rank1(state, packed0, batch, y, mask, pad_count, params, beta=1.
     W_pat = _update_patterns(packed0, batch, mask)
     scan = _SCANS[params.scan_style]
     accepts, log_alphas = scan(state, batch, W_pat, y.reshape(-1), mask, pad_count, params, beta)
-    accepts = torch.stack(accepts, 1)
+    if isinstance(accepts, list):  # the torch loops: one (C,) tensor a move
+        accepts, log_alphas = torch.stack(accepts, 1), torch.stack(log_alphas, 1)
     forest, leaves, subs = _merge_accepted(packed0, state, batch, accepts)
-    return forest, leaves, subs, accepts, torch.stack(log_alphas, 1)
+    return forest, leaves, subs, accepts, log_alphas
 
 
 def _tree_moves_chol(state, packed0, batch, y, mask, pad_count, params, beta=1.0):

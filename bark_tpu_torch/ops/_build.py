@@ -43,6 +43,7 @@ _SIGNATURES = {
         _i,
     ),
     "bark_chol_inv": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),
+    "bark_move_scan": ([_vp] * 11 + [_i, _i, _i, _i, _vp], _i),
     "bark_error_string": ([_i], ctypes.c_char_p),
 }
 

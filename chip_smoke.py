@@ -297,6 +297,22 @@ in both of its tiers, in phases:
      of 20 steps) beside the default's, and the host's synchronisations of
      one step (CUDA's sync debug mode).
 
+ 17. K3, the dense move scan as one kernel (``csrc/move_scan.cu``): (a) at
+     (64, 50), (4, 64) with 10 pad rows and (8, 255), each from a state 20
+     steps from empty forests, beta 1.0 and one per chain in (0, 1]: one
+     launch a scan, every chain deciding each move as the twin (the torch
+     loop, ``sampler._scan_plain_loop``) until a near-tie (u within 1e-5 of
+     the twin's or the float64 loop's acceptance probability) or a move the
+     float64 loop decides otherwise, the same moves vetoed, log alphas no
+     farther from the float64 loop's than 1e-4 beyond the twin's and, at
+     N <= 64, within 1e-4 of the twin's; (b) ``run_chain`` at N=50, 64
+     chains, 50 steps: K3 50 launches, K1 and K2 51 each; (c) device, call
+     and bound at (64, 50) and (4, 64), beside the twin's call; (d)
+     stationarity: from one state 100 steps warm, 500 steps with the kernel
+     and 500 with the twin (independent draws, 64 chains, N=50), the tree
+     accept rate and the mean leaves a tree within 4 standard errors of the
+     difference (chain c of each arm from warm chain c: paired).
+
 The whole run takes eleven to nineteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
 sampler paths keep their 64 chains, which cost the host no more than 32).
@@ -317,7 +333,8 @@ N=4080", "largen ask lowrank N=8192", "largen predict N=8192", "mcmc_record
 N=50", "tempered_smc single", "tempered_smc sharded, 1 NCCL rank",
 "bandit_bo", "regression_hpo", "samples_ablation", "priors_and_proposals"
 and "scaling, <n> rank(s), rank 0", phase 15's "bench N=50", "bench N=50
-cat" and "bench N=512", and phase 16's "lowering <name> N=<n>"), error, times
+cat" and "bench N=512", and phase 16's "lowering <name> N=<n>"; K3's
+"run_chain N=50" of phase 17), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
 "library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
 under "times", the
@@ -3376,6 +3393,207 @@ def phase_lowerings(torch, dev, smi, tf):
     return launches, times
 
 
+SCAN_CASES = ((SLICE_CHAINS, 50, 0), (4, 64, 10), (8, 255, 0))  # (chains, N, pad rows)
+SCAN_TIE = 1e-5  # |u - p| (twin or float64 loop) below which a chain is no longer compared
+SCAN_LA_ATOL = 1e-4
+STATIONARY_WARMUP, STATIONARY_STEPS, STATIONARY_THIN = 100, 500, 10
+STATIONARY_Z = 4.0
+
+
+def scan_case(torch, dev, tf, chains, n, pads, seed=0, steps=20):
+    """The move scan's inputs: a state ``steps`` steps from empty forests on
+    TreeFunction(dim=5, m=50) data (the last ``pads`` rows masked), then one
+    step's proposal batch and update patterns. Returns (state, batch,
+    W_pat, y, mask, pad_count, params)."""
+    from bark_tpu_torch.fitting import sampler
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.forest import create_empty_forest
+
+    rng = np.random.default_rng(seed)
+    X_np = tf.domain.sample(n, rng)
+    y_np = tf.f(X_np)
+    y_np = (y_np - y_np.mean()) / y_np.std()
+    y_np[n - pads:] = 0.0
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, dtype=torch.float32, device=dev)
+    mask = torch.ones(n, device=dev)
+    mask[n - pads:] = 0.0
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+    params = SamplerParams(warmup_steps=steps, num_samples=1, steps_per_sample=1,
+                           num_chains=chains, num_trees=SLICE_TREES)
+    model = sampler.BARKModel(
+        create_empty_forest(SLICE_TREES, params.node_limit, (chains,), dev),
+        torch.full((chains,), 0.1, device=dev), torch.ones(chains, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = sampler.run_chain(gen, model, X, y, bounds, ft, params, mask=mask).state
+    params = sampler._resolve_styles(params, n)
+    draws = sampler.draw_step(gen, chains, params, dev)
+    packed0, batch = sampler._propose_all_trees(state, X, ft, bounds, params, draws.proposal)
+    W_pat = sampler._update_patterns(packed0, batch, mask)
+    return state, batch, W_pat, y, mask, n - mask.sum(), params
+
+
+def phase_move_scan(torch, dev, smi, tf):
+    """Phase 17: K3, the dense move scan as one kernel. Returns its launches
+    on the main path, the largest log-alpha gap, and its times."""
+    from bark_tpu_torch.benchmarks.kernel_timing import call_ms, k3_bound, kernel_time
+    from bark_tpu_torch.fitting import sampler
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.fitting.traversal import terminal_mask
+    from bark_tpu_torch.forest import Forest, create_empty_forest
+    from bark_tpu_torch.ops.chol import chol_inv_cuda
+    from bark_tpu_torch.ops.gram import gram_cuda
+    from bark_tpu_torch.ops.scan import move_scan_cuda
+
+    t_phase = time.perf_counter()
+    m = SLICE_TREES
+    # (a) the kernel against its twin, move by move, and both against the
+    # twin run in float64 from the same inputs
+    def f64(x):
+        if torch.is_tensor(x):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, tuple):
+            items = [f64(t) for t in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    worst = {"kernel": 0.0, "twin": 0.0, "kernel vs twin": 0.0}
+    cases = {}
+    for chains, n, pads in SCAN_CASES:
+        args = scan_case(torch, dev, tf, chains, n, pads)
+        cases[(chains, n)] = args
+        for beta in (1.0, torch.linspace(0.2, 1.0, chains, device=dev)):
+            tag = (f"K3 ({chains},{n}) pads {pads} beta "
+                   f"{beta if isinstance(beta, float) else 'per chain'}")
+            before = move_scan_cuda.launches
+            acc, la = sampler._scan_plain(*args, beta)
+            torch.cuda.synchronize()
+            require(move_scan_cuda.launches == before + 1, f"{tag}: one launch")
+            want_acc, want_la = (torch.stack(t, 1) for t in sampler._scan_plain_loop(*args, beta))
+            acc64, la64 = (torch.stack(t, 1)
+                           for t in sampler._scan_plain_loop(*f64(args), f64(beta)))
+            u = args[1].u_accept.double()
+            tie = ((u - torch.exp(torch.clamp_max(want_la.double(), 0.0))).abs() <= SCAN_TIE) | (
+                (u - torch.exp(torch.clamp_max(la64, 0.0))).abs() <= SCAN_TIE) | (acc64 != want_acc)
+            stop = torch.where(tie.any(1), tie.int().argmax(1), m)
+            compared = torch.arange(m, device=dev) < stop[:, None]
+            require(torch.equal(acc[compared], want_acc[compared]),
+                    f"{tag}: every chain decides like the twin before a near-tie")
+            require(torch.equal(torch.isinf(la[compared]), torch.isinf(want_la[compared])),
+                    f"{tag}: the kernel vetoes the moves the twin vetoes")
+            fin = compared & torch.isfinite(la64)
+            gaps = {"kernel": (la[fin].double() - la64[fin]).abs().max().item(),
+                    "twin": (want_la[fin].double() - la64[fin]).abs().max().item(),
+                    "kernel vs twin": (la[fin] - want_la[fin]).abs().max().item()}
+            worst = {k: max(v, gaps[k]) for k, v in worst.items()}
+            require(gaps["kernel"] <= gaps["twin"] + SCAN_LA_ATOL,
+                    f"{tag}: log alpha no farther from the float64 loop's than "
+                    f"{SCAN_LA_ATOL} beyond the twin's ({gaps})")
+            if n <= 64:
+                require(gaps["kernel vs twin"] <= SCAN_LA_ATOL,
+                        f"{tag}: log alpha within {SCAN_LA_ATOL} of the twin's ({gaps})")
+            log(f"[K3] {tag}: {int(compared.sum())} of {chains * m} moves compared "
+                f"({int((stop < m).sum())} chains stopped at a near-tie), decisions alike; "
+                f"|log alpha - float64 loop's| kernel {gaps['kernel']:.3e}, twin "
+                f"{gaps['twin']:.3e}; kernel vs twin {gaps['kernel vs twin']:.3e}; accept "
+                f"rate {want_acc.float().mean().item():.3f}")
+    log(f"[K3] largest log alpha gaps: {json.dumps(worst)}")
+
+    # (b) the main path: one launch a step, K1 and K2 as before
+    X_np = tf.domain.sample(50, np.random.default_rng(0))
+    y_np = tf.f(X_np)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor((y_np - y_np.mean()) / y_np.std(), dtype=torch.float32, device=dev)
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+
+    def model(chains):
+        return sampler.BARKModel(
+            create_empty_forest(m, 64, (chains,), dev), torch.full((chains,), 0.1, device=dev),
+            torch.ones(chains, device=dev))
+
+    params = SamplerParams(warmup_steps=0, num_samples=10, steps_per_sample=5,
+                           num_chains=SLICE_CHAINS, num_trees=m)
+    before = (move_scan_cuda.launches, gram_cuda.launches, chol_inv_cuda.launches)
+    sampler.run_chain(torch.Generator(device=dev).manual_seed(3), model(SLICE_CHAINS), X, y,
+                      bounds, ft, params)
+    torch.cuda.synchronize()
+    counts = {k: a - b for k, a, b in zip(
+        ("move_scan", "gram", "chol_inv"),
+        (move_scan_cuda.launches, gram_cuda.launches, chol_inv_cuda.launches), before)}
+    require(counts == {"move_scan": 50, "gram": 51, "chol_inv": 51},
+            f"K3 once a step, K1 and K2 once per init and step on run_chain: {counts}")
+    log(f"[K3] run_chain N=50, 64 chains, 50 steps: launches {counts}")
+
+    # (c) times at the cells' shapes: the kernel's device and call time, the twin's call
+    times = {}
+    for chains, n in ((SLICE_CHAINS, 50), (4, 64)):
+        st, batch, W_pat, yc, mask, pad_count, p = cases[(chains, n)]
+        h, corr = sampler._scan_scales(st, pad_count, p)
+        ones = torch.ones_like(h)
+
+        def run():
+            return move_scan_cuda(st.kern.K_inv, yc, W_pat, h, st.kern.K_logdet, corr,
+                                  batch.log_q_prior, batch.u_accept, ones)
+
+        dev_ms, _, _, source = kernel_time(torch, run, "move_scan_kernel", 1)
+        call = call_ms(torch, run)
+        plain = call_ms(torch, lambda: sampler._scan_plain_loop(st, batch, W_pat, yc, mask,
+                                                                pad_count, p, 1.0),
+                        reps=5, inner=2, warmup=1)
+        bound_ms, bound_by = k3_bound(chains, n, m)
+        name = f"({chains},{n})"
+        times[name] = {"device_ms": dev_ms, "device_source": source, "call_ms": call,
+                       "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "share_of_bound": bound_ms / dev_ms}
+        log(f"[K3] {name} x {m} moves: device {dev_ms:.5f} ms ({source}), call {call:.5f}, "
+            f"plain (the twin's loop) {plain:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{100 * bound_ms / dev_ms:.2f}% of it, on {smi}")
+
+    # (d) stationarity: from one warm state, 500 steps with the kernel and with
+    # the twin (independent draws); the tree accept rate and the mean leaves a
+    # tree agree within their Monte-Carlo error (each chain's two arms a pair)
+    warm = sampler.run_chain(
+        torch.Generator(device=dev).manual_seed(11), model(SLICE_CHAINS), X, y, bounds, ft,
+        SamplerParams(warmup_steps=STATIONARY_WARMUP - 1, num_samples=1, steps_per_sample=1,
+                      num_chains=SLICE_CHAINS, num_trees=m))
+    start = sampler.BARKModel(Forest(*(f[:, -1] for f in warm.samples.forest)),
+                              warm.samples.noise[:, -1], warm.samples.scale[:, -1])
+    params = SamplerParams(warmup_steps=0, num_samples=STATIONARY_STEPS // STATIONARY_THIN,
+                           steps_per_sample=STATIONARY_THIN, num_chains=SLICE_CHAINS,
+                           num_trees=m)
+    stats = {}
+    for arm, seed in (("kernel", 21), ("twin", 22)):
+        saved = sampler._SCANS["plain"]
+        if arm == "twin":
+            sampler._SCANS["plain"] = sampler._scan_plain_loop
+        t0 = time.perf_counter()
+        try:
+            run = sampler.run_chain(torch.Generator(device=dev).manual_seed(seed), start, X, y,
+                                    bounds, ft, params)
+            torch.cuda.synchronize()
+        finally:
+            sampler._SCANS["plain"] = saved
+        leaves = terminal_mask(run.samples.forest).sum(-1).float().mean((1, 2))  # (C,)
+        stats[arm] = {"accept": run.tree_accept_rate.float(), "leaves": leaves,
+                      "seconds": time.perf_counter() - t0}
+    for what in ("accept", "leaves"):
+        a, b = stats["kernel"][what], stats["twin"][what]
+        d = a - b  # chain c of both arms starts from warm chain c: paired
+        se = (d.std() / SLICE_CHAINS ** 0.5).item()
+        z = d.mean().item() / se
+        log(f"[K3 stationarity] {what}: kernel {a.mean().item():.5f}, twin "
+            f"{b.mean().item():.5f} (se of the difference {se:.2e}, z {z:+.2f}) over "
+            f"{STATIONARY_STEPS} steps x {SLICE_CHAINS} chains at N=50")
+        require(abs(z) <= STATIONARY_Z, f"K3 stationarity: {what} within {STATIONARY_Z} "
+                                        f"standard errors of the twin's (z {z:+.2f})")
+    log(f"[K3 stationarity] {STATIONARY_STEPS} steps: kernel "
+        f"{stats['kernel']['seconds']:.1f} s, twin {stats['twin']['seconds']:.1f} s on {smi}")
+    log(f"[phase 17] {time.perf_counter() - t_phase:.1f} s")
+    return {"run_chain N=50": counts["move_scan"]}, worst["kernel"], times
+
+
 def main() -> int:
     import torch
 
@@ -3839,6 +4057,8 @@ def main() -> int:
     launches.update(path_launches)
     for (kernel, name), t in path_times.items():
         (k1_times if kernel == "gram" else k2_times)[name] = t
+    # --- 17. the dense move scan as one kernel ------------------------------------
+    k3_launches, k3_err, k3_times = phase_move_scan(torch, dev, smi, tf)
 
     k1 = k1_times[f"({SLICE_CHAINS},50,50)"]
     k2 = k2_times["(128,50,50)"]
@@ -3864,6 +4084,10 @@ def main() -> int:
          "device_source": k2["device_source"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"], "times": k2_times},
+        {"name": "move_scan", "route": "cuda", "source": "bark_tpu_torch/csrc/move_scan.cu",
+         "replaces": None, "launches": k3_launches["run_chain N=50"],
+         "launches_by_path": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_times[f"({SLICE_CHAINS},50)"]["device_ms"], "times": k3_times},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,7 +12,10 @@ version's order, so kernel and plain version agree exactly;
 K2 and cuSOLVER order the same float32 sums differently, so L agrees to
 1e-4 (2e-4 through ``blocked_cholesky``, the reference's bound for its
 blocked path) and E is an inverse of L to 5e-4 (the bounds of chip_smoke.py, from
-the reference's tests/ops/test_pallas_chol.py).
+the reference's tests/ops/test_pallas_chol.py). K3, the move scan, sums its
+products in another order than its twin's cuBLAS calls, so its decisions
+agree up to near-ties and its log alphas are held to the float64 loop's (see
+its test).
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ from bark_tpu_torch.ops.chol import MAX_BLOCK, chol_inv_cuda, chol_inv_plain
 from bark_tpu_torch.ops import gram
 from bark_tpu_torch.ops.gram import gram_cuda, gram_from_leaves, gram_plain
 from bark_tpu_torch.ops.linalg import JITTER, blocked_cholesky, robust_chol_inv_logdet
+from bark_tpu_torch.ops.scan import MAX_N, move_scan_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -436,3 +440,122 @@ def test_grid_ucb_ask_on_the_card_agrees_with_the_cpu(dev):
     assert np.array_equal(x[0], grid[int(np.argmax(lcb))])
     i_c = int(np.argmax(lcb_c))
     assert abs(lcb.max() - lcb[i_c]) <= 1e-5 * abs(lcb.max())
+
+
+def _scan_case(dev, chains, n, pads, seed=0, steps=20):
+    """The move scan's inputs on the card: a state after ``steps`` sampler
+    steps from empty forests (TreeFunction(dim=5, m=50), the last ``pads``
+    rows masked), then one step's proposal batch and update patterns.
+    Returns (state, batch, W_pat, y, mask, pad_count, params)."""
+    from bark_tpu_torch.benchmarks.tree_function import TreeFunction
+    from bark_tpu_torch.fitting import sampler
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.forest import create_empty_forest
+
+    tf = TreeFunction(dim=5, m=50, function_seed=1)
+    rng = np.random.default_rng(seed)
+    X_np = tf.domain.sample(n, rng)
+    y_np = tf.f(X_np)
+    y_np = (y_np - y_np.mean()) / y_np.std()
+    y_np[n - pads:] = 0.0
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, dtype=torch.float32, device=dev)
+    mask = torch.ones(n, device=dev)
+    mask[n - pads:] = 0.0
+    ft = torch.as_tensor(tf.domain.feature_types(), device=dev)
+    bounds = torch.as_tensor(tf.domain.bounds("bitmask"), device=dev)
+    params = SamplerParams(warmup_steps=steps, num_samples=1, steps_per_sample=1,
+                           num_chains=chains, num_trees=50)
+    model = sampler.BARKModel(create_empty_forest(50, params.node_limit, (chains,), dev),
+                              torch.full((chains,), 0.1, device=dev),
+                              torch.ones(chains, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = sampler.run_chain(gen, model, X, y, bounds, ft, params, mask=mask).state
+    params = sampler._resolve_styles(params, n)
+    draws = sampler.draw_step(gen, chains, params, dev)
+    packed0, batch = sampler._propose_all_trees(state, X, ft, bounds, params, draws.proposal)
+    W_pat = sampler._update_patterns(packed0, batch, mask)
+    return state, batch, W_pat, y, mask, n - mask.sum(), params
+
+
+def _float64(x):
+    """``x`` with every float tensor in it, inside tuples and named tuples,
+    in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        items = [_float64(t) for t in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@pytest.mark.parametrize("beta", ["one", "per-chain"])
+@pytest.mark.parametrize("chains,n,pads,seed", [(64, 50, 0, 0), (4, 64, 6, 0), (4, 64, 14, 0),
+                                                (16, 200, 0, 1), (8, MAX_N, 0, 1),
+                                                (8, MAX_N, 0, 2)])
+def test_move_scan_kernel_matches_its_twin(dev, chains, n, pads, seed, beta):
+    """K3 against the torch loop on the card, from a state 20-40 steps from
+    empty forests, move by move until a chain reaches a near-tie (u within
+    1e-5 of the float32 or the float64 loop's acceptance probability) or the
+    float64 loop decides otherwise than the float32 one:
+
+      - the accepts are the float32 loop's;
+      - the log alphas lie no farther from the float64 loop's than 1e-4
+        beyond the float32 loop's farthest, and at the cells' N (50, 64)
+        within 1e-4 of the float32 loop's. From N ~ 128 the float32 loop is
+        itself up to ~2e-3 off the float64 one (MLL terms near 1,000 in
+        float32), so there the kernel is held to float64.
+    """
+    from bark_tpu_torch.fitting import sampler
+
+    args = _scan_case(dev, chains, n, pads, seed=seed, steps=20 + 10 * seed)
+    b = 1.0 if beta == "one" else torch.linspace(0.2, 1.0, chains, device=dev)
+    before = move_scan_cuda.launches
+    acc, la = sampler._scan_plain(*args, b)
+    torch.cuda.synchronize()
+    assert move_scan_cuda.launches == before + 1
+    assert acc.shape == la.shape == (chains, 50) and acc.dtype == torch.bool
+    want_acc, want_la = (torch.stack(t, 1) for t in sampler._scan_plain_loop(*args, b))
+    acc64, la64 = (torch.stack(t, 1) for t in sampler._scan_plain_loop(*_float64(args),
+                                                                      _float64(b)))
+    u = args[1].u_accept.double()
+    tie = ((u - torch.exp(torch.clamp_max(want_la.double(), 0.0))).abs() <= 1e-5) | (
+        (u - torch.exp(torch.clamp_max(la64, 0.0))).abs() <= 1e-5) | (acc64 != want_acc)
+    stop = torch.where(tie.any(1), tie.int().argmax(1), 50)
+    compared = torch.arange(50, device=dev) < stop[:, None]
+    assert torch.equal(acc[compared], want_acc[compared])
+    assert torch.equal(torch.isinf(la[compared]), torch.isinf(want_la[compared]))
+    fin = compared & torch.isfinite(la64)
+    kernel_gap = (la[fin].double() - la64[fin]).abs().max().item()
+    loop_gap = (want_la[fin].double() - la64[fin]).abs().max().item()
+    assert kernel_gap <= loop_gap + 1e-4, (kernel_gap, loop_gap)
+    if n <= 64:
+        assert (la[fin] - want_la[fin]).abs().max().item() <= 1e-4
+    assert compared.sum() >= 0.75 * chains * 50
+    assert 0 < want_acc.float().mean() < 1
+
+
+def test_run_chain_launches_the_scan_kernel_once_a_step(dev):
+    """50 steps of the dense tier at 64 chains: one K3 launch a step, none in
+    the init."""
+    from bark_tpu_torch.benchmarks.tree_function import TreeFunction
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.fitting.sampler import BARKModel, run_chain
+    from bark_tpu_torch.forest import create_empty_forest
+
+    tf = TreeFunction(dim=5, m=50, function_seed=1)
+    X_np = tf.domain.sample(50, np.random.default_rng(0))
+    y_np = tf.f(X_np)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor((y_np - y_np.mean()) / y_np.std(), dtype=torch.float32, device=dev)
+    params = SamplerParams(warmup_steps=0, num_samples=10, steps_per_sample=5, num_chains=64,
+                           num_trees=50)
+    model = BARKModel(create_empty_forest(50, params.node_limit, (64,), dev),
+                      torch.full((64,), 0.1, device=dev), torch.ones(64, device=dev))
+    before = move_scan_cuda.launches
+    run = run_chain(torch.Generator(device=dev).manual_seed(0), model, X, y,
+                    torch.as_tensor(tf.domain.bounds("bitmask"), device=dev),
+                    torch.as_tensor(tf.domain.feature_types(), device=dev), params)
+    torch.cuda.synchronize()
+    assert move_scan_cuda.launches - before == 50
+    assert 0 < run.tree_accept_rate.mean().item() < 1
