@@ -112,6 +112,8 @@ class TreeKernelStrategy:
         self.y: np.ndarray | None = None
         self._last_proposal: np.ndarray | None = None
         self.fallbacks = 0  # asks answered at random after an AcquisitionFailure
+        self.duplicate_asks = 0  # asks whose first point repeated a train row or the last proposal
+        self.random_asks = 0  # of those, asks answered at random: the Thompson point repeated too
 
     # --- tell ------------------------------------------------------------
 
@@ -155,13 +157,16 @@ class TreeKernelStrategy:
                     # the same point and the BO loop stalls. A Thompson draw
                     # from the exact leaf-space posterior breaks the tie by
                     # optimizing a different (sampled) objective.
-                    candidate = self._propose_once(use_ts=True)
-                    if self._is_duplicate(candidate):
-                        logger.info(
-                            "Duplicate proposal persisted through the Thompson "
-                            "fallback; proposing a feasible random candidate."
-                        )
-                        candidate = sample_feasible(self.domain, 1, self._rng)[0]
+                    self.duplicate_asks += 1
+                    with annotate("bark.ask.dedup"):
+                        candidate = self._propose_once(use_ts=True)
+                        if self._is_duplicate(candidate):
+                            self.random_asks += 1
+                            logger.info(
+                                "Duplicate proposal persisted through the Thompson "
+                                "fallback; proposing a feasible random candidate."
+                            )
+                            candidate = sample_feasible(self.domain, 1, self._rng)[0]
             except AcquisitionFailure:
                 self.fallbacks += 1
                 logger.warning(
