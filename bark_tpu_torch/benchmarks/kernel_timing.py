@@ -80,6 +80,17 @@ def k3_bound(c: int, n: int, m: int):
     return bound(reads + 5.0 * c * m, 8.0 * c * m * n * n)
 
 
+def k4_bound(c: int, m: int, node_limit: int, n: int, d: int):
+    """K4's bound for c chains of m trees: the packed trees read and the
+    proposed ones written (32 B a slot each way), the noise read (6 uniforms
+    and node_limit Gumbels a tree), the current leaves read and both leaf
+    tensors written (4 B a point a tree each), X, the bounds and the feature
+    types read once, log q, move and node written; no flops counted."""
+    trees = c * m
+    bytes_ = 4.0 * (trees * (16 * node_limit + 6 + node_limit + 3 * n + 3) + n * d + 3 * d)
+    return bound(bytes_, 0.0)
+
+
 def call_ms(torch, fn, reps: int = 25, inner: int = 10, warmup: int = 5) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` calls / inner."""
     for _ in range(warmup):

@@ -45,7 +45,8 @@ parent chain; all give the same proposals bit for bit.
 Every factorization goes through the Cholesky-with-inverse kernel K2
 (``ops.chol``, through ``ops.linalg.blocked_cholesky``/``chol_inv``), and
 every Gram through the agreement kernel K1 (``ops.gram``); on the card the
-plain move scan is one launch of the scan kernel K3 (``ops.scan``). The
+plain move scan is one launch of the scan kernel K3 (``ops.scan``) and the
+walk's proposal batch one launch of K4 (``ops.propose``). The
 reference's ``gram_dtype``, ``chol_block``, ``chol_impl`` and
 ``scan_unroll`` choose among XLA lowerings of the same arithmetic; they are
 accepted and not read here: K1's counts are exact whatever the one-hot
@@ -111,6 +112,7 @@ from bark_tpu_torch.ops.linalg import (
     kernel_matrix,
     masked_mll,
 )
+from bark_tpu_torch.ops.propose import propose_batch_cuda
 from bark_tpu_torch.ops.scan import move_scan_cuda
 from bark_tpu_torch.utils.profiling import annotate
 
@@ -480,12 +482,49 @@ class _ProposalBatch(NamedTuple):
     new_subs: torch.Tensor | None  # (C, m, node_limit, D, 2) under "carry"
 
 
+def _propose_torch(packed0, noise, leaves, X, feat_types, bounds, params, subspaces=None):
+    """The proposal batch in torch: under ``subspace_mode="walk"``
+    (``subspaces`` None) K4's twin and oracle and the path of CPU tensors,
+    under "carry" the only path. ``packed0`` (C, m, node_limit, 8), the
+    ProposalNoise fields with leading (C, m), ``leaves`` (C, N, m),
+    ``subspaces`` (C, m, node_limit, D, 2). Returns the
+    :class:`_ProposalBatch` fields but ``u_accept``."""
+    c, m, node_limit, _ = packed0.shape
+    n = X.shape[0]
+    flat = packed0.reshape(c * m, node_limit, 8)
+    flat_noise = ProposalNoise(*(t.reshape(c * m, *t.shape[2:]) for t in noise))
+    new_subs = None
+    if subspaces is None:
+        new_packed, log_q_prior, move, node = propose_tree_packed(
+            flat, bounds, feat_types, params, flat_noise
+        )
+    else:
+        subs = subspaces.reshape(c * m, *subspaces.shape[2:])
+        new_packed, new_subs, log_q_prior, move, node = propose_tree_packed(
+            flat, bounds, feat_types, params, flat_noise, subspace_tree=subs
+        )
+        new_subs = new_subs.reshape(subspaces.shape)
+    rows = torch.arange(c * m, device=X.device)
+    nodes = node.long()
+    cur_leavesT = leaves.transpose(1, 2).reshape(c * m, n)
+    new_leavesT = _incremental_leaves(
+        flat[rows, nodes], new_packed[rows, nodes], cur_leavesT, move, node, X,
+        feat_types,
+    )
+    return (new_packed.reshape(c, m, node_limit, 8), cur_leavesT.reshape(c, m, n),
+            new_leavesT.reshape(c, m, n), log_q_prior.reshape(c, m), move.reshape(c, m),
+            node.reshape(c, m), new_subs)
+
+
 def _propose_all_trees(state, X, feat_types, bounds, params, noise):
     """The hoisted proposal batch over all chains and trees.
 
     ``params.subspace_mode`` picks the walk or the carry, as the reference
     does; a state whose ``subspaces`` do not match the mode (None under
-    "walk", a tensor under "carry") raises ValueError."""
+    "walk", a tensor under "carry") raises ValueError. On CUDA tensors the
+    walk is one launch of the kernel K4 (``ops.propose``), which raises on
+    what it does not take; the carry, and CPU tensors, take
+    :func:`_propose_torch`."""
     carry_subs = params.subspace_mode == "carry"
     if carry_subs != (state.subspaces is not None):
         raise ValueError(
@@ -493,40 +532,22 @@ def _propose_all_trees(state, X, feat_types, bounds, params, noise):
             f"{'with' if carry_subs else 'without'} carried subspaces; build it "
             "with init_chain_state under the same params"
         )
-    c, m, node_limit = state.forest.is_leaf.shape
-    n = X.shape[0]
     packed0 = pack_forest(state.forest)  # (C, m, node_limit, 8)
-    flat = packed0.reshape(c * m, node_limit, 8)
-    flat_noise = ProposalNoise(*(t.reshape(c * m, *t.shape[2:]) for t in noise))
-    new_subs = None
-    if not carry_subs:
-        new_packed, log_q_prior, move, node = propose_tree_packed(
-            flat, bounds, feat_types, params, flat_noise
-        )
+    if packed0.is_cuda and not carry_subs:
+        fields = (*propose_batch_cuda(
+            packed0, *(t.contiguous() for t in noise[:6]), bounds.contiguous(),
+            feat_types.to(torch.int32).contiguous(), X.contiguous(), state.leaves,
+            params.proposal_weights, params.alpha, params.beta, params.max_depth,
+        ), None)
     else:
-        subs = state.subspaces.reshape(c * m, *state.subspaces.shape[2:])
-        new_packed, new_subs, log_q_prior, move, node = propose_tree_packed(
-            flat, bounds, feat_types, params, flat_noise, subspace_tree=subs
-        )
-        new_subs = new_subs.reshape(state.subspaces.shape)
-    rows = torch.arange(c * m, device=X.device)
-    nodes = node.long()
-    cur_leavesT = state.leaves.transpose(1, 2).reshape(c * m, n)
-    new_leavesT = _incremental_leaves(
-        flat[rows, nodes], new_packed[rows, nodes], cur_leavesT, move, node, X,
-        feat_types,
-    )
-    batch = _ProposalBatch(
-        new_packed=new_packed.reshape(c, m, node_limit, 8),
-        cur_leavesT=cur_leavesT.reshape(c, m, n),
-        new_leavesT=new_leavesT.reshape(c, m, n),
-        log_q_prior=log_q_prior.reshape(c, m),
-        move=move.reshape(c, m),
-        node=node.reshape(c, m),
-        u_accept=noise.u_accept,
+        fields = _propose_torch(packed0, noise, state.leaves, X, feat_types, bounds, params,
+                                state.subspaces)
+    new_packed, cur_leavesT, new_leavesT, log_q_prior, move, node, new_subs = fields
+    return packed0, _ProposalBatch(
+        new_packed=new_packed, cur_leavesT=cur_leavesT, new_leavesT=new_leavesT,
+        log_q_prior=log_q_prior, move=move, node=node, u_accept=noise.u_accept,
         new_subs=new_subs,
     )
-    return packed0, batch
 
 
 def _merge_accepted(packed0, state, batch, accepts):

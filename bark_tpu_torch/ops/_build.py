@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "bark_gram": (
         [_vp, _ll, _i, _vp, _ll, _i, _vp, _vp, _vp, _vp, _ll, _vp, _ll, _vp,
@@ -44,6 +44,8 @@ _SIGNATURES = {
     ),
     "bark_chol_inv": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),
     "bark_move_scan": ([_vp] * 11 + [_i, _i, _i, _i, _vp], _i),
+    "bark_propose": ([_vp] * 11 + [_ll] * 3 + [_vp] * 6 + [_i] * 6 + [_f] * 5 + [_i] * 3 + [_vp],
+                     _i),
     "bark_error_string": ([_i], ctypes.c_char_p),
 }
 

@@ -312,6 +312,14 @@ in both of its tiers, in phases:
      and 500 with the twin (independent draws, 64 chains, N=50), the tree
      accept rate and the mean leaves a tree within 4 standard errors of the
      difference (chain c of each arm from warm chain c: paired).
+ 18. K4, the proposal batch as one kernel (``csrc/propose.cu``): (a) at
+     the four cells' shapes, (64 chains x 50 trees, N 50, D 5) continuous
+     and with 2 categorical inputs, (4 x 50, padded N 64) and (4 x 50, N
+     128, D 25) all categorical, each from a state 20 steps from empty
+     forests: one launch a batch, every field equal to the twin's
+     (``sampler._propose_torch``) but log q, within 8 float32 ulps; (b)
+     ``run_chain`` at N=50, 64 chains, 50 steps: K4 50 launches; (c) device,
+     call and bound at each shape, beside the twin's call.
 
 The whole run takes eleven to nineteen minutes of command time on an H100 (the sampler's
 step is bound by the host's launch rate, so the time follows the host; the
@@ -336,7 +344,8 @@ and "scaling, <n> rank(s), rank 0", phase 15's "bench N=50", "bench N=50
 cat" and "bench N=512", and phase 16's "lowering <name> N=<n>"; K3's
 "run_chain N=50" of phase 17), error, times
 at the headline shape ("ms" is the device time; "call_ms", "plain_ms",
-"library_ms", "bound_ms" and "bound_by" beside it) and at each timed shape
+"library_ms", "bound_ms" and "bound_by" beside it; K4's "run_chain N=50" of
+phase 18) and at each timed shape
 under "times", the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -3594,6 +3603,117 @@ def phase_move_scan(torch, dev, smi, tf):
     return {"run_chain N=50": counts["move_scan"]}, worst["kernel"], times
 
 
+PROPOSE_CASES = (  # (name, chains, N, inputs): the four cells' shapes
+    ("mcmc.treefn5.n50", SLICE_CHAINS, 50, "cont"),
+    ("mcmc.treefn5.n50.cat2", SLICE_CHAINS, 50, "cat2"),
+    ("bo.treefn5.n50", 4, 64, "cont"),
+    ("bo.pest25.n120", 4, 128, "pest"),
+)
+PROPOSE_ULPS = 8  # log q: logf and powf against torch.log and torch.pow
+
+
+def propose_case(torch, dev, chains, n, inputs, seed=0, steps=20):
+    """A proposal batch's inputs on the card: a state ``steps`` sampler steps
+    from empty forests on data of 5 continuous inputs, 3 and 2 categorical
+    ones of 5 levels, or 25 categorical ones, and one step's draws. Returns
+    (state, X, feat_types, bounds, params, noise)."""
+    from bark_tpu_torch.fitting import sampler
+    from bark_tpu_torch.fitting.params import SamplerParams
+    from bark_tpu_torch.forest import FEAT_CAT, FEAT_CONT, create_empty_forest
+
+    n_cat = {"cont": 0, "cat2": 2, "pest": 25}[inputs]
+    n_cont = 0 if inputs == "pest" else 5 - n_cat
+    rng = np.random.default_rng(seed)
+    X_np = np.concatenate([rng.uniform(size=(n, n_cont)),
+                           rng.integers(0, 5, (n, n_cat)).astype(np.float64)], 1)
+    y_np = np.sin(6.0 * X_np[:, 0]) + (X_np[:, -1] >= 2)
+    y_np = (y_np - y_np.mean()) / y_np.std()
+    X = torch.as_tensor(X_np, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y_np, dtype=torch.float32, device=dev)
+    ft = torch.tensor([FEAT_CONT] * n_cont + [FEAT_CAT] * n_cat, dtype=torch.int32, device=dev)
+    bounds = torch.tensor([[0.0, 1.0]] * n_cont + [[0.0, 31.0]] * n_cat, device=dev)
+    params = SamplerParams(warmup_steps=steps, num_samples=1, steps_per_sample=1,
+                           num_chains=chains, num_trees=SLICE_TREES)
+    model = sampler.BARKModel(
+        create_empty_forest(SLICE_TREES, params.node_limit, (chains,), dev),
+        torch.full((chains,), 0.1, device=dev), torch.ones(chains, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = sampler.run_chain(gen, model, X, y, bounds, ft, params).state
+    params = sampler._resolve_styles(params, n)
+    return state, X, ft, bounds, params, sampler.draw_step(gen, chains, params, dev).proposal
+
+
+def phase_propose(torch, dev, smi):
+    """Phase 18: K4, the proposal batch as one kernel. Returns its launches
+    on the main path, the largest log q gap in ulps, and its times."""
+    from bark_tpu_torch.benchmarks.kernel_timing import call_ms, k4_bound, kernel_time
+    from bark_tpu_torch.fitting import sampler
+    from bark_tpu_torch.ops.propose import propose_batch_cuda
+
+    t_phase = time.perf_counter()
+    names = ("new_packed", "cur_leavesT", "new_leavesT", "log_q_prior", "move", "node")
+    worst_ulps, times = 0.0, {}
+    for name, chains, n, inputs in PROPOSE_CASES:
+        state, X, ft, bounds, params, noise = propose_case(torch, dev, chains, n, inputs)
+        # (a) the kernel against the twin
+        before = propose_batch_cuda.launches
+        _, batch = sampler._propose_all_trees(state, X, ft, bounds, params, noise)
+        torch.cuda.synchronize()
+        require(propose_batch_cuda.launches == before + 1, f"K4 {name}: one launch")
+        want = sampler._propose_torch(sampler.pack_forest(state.forest), noise, state.leaves, X,
+                                      ft, bounds, params)
+        for field, got, exp in zip(names, batch, want):
+            if field != "log_q_prior":
+                require(torch.equal(got, exp), f"K4 {name}: {field} equal to the twin's")
+        lq, lq_twin = batch.log_q_prior, want[3]
+        require(torch.equal(torch.isinf(lq), torch.isinf(lq_twin)),
+                f"K4 {name}: the twin's rejects")
+        fin = torch.isfinite(lq_twin)
+        ulps = ((lq[fin] - lq_twin[fin]).abs() / (torch.finfo(torch.float32).eps
+                                                  * torch.clamp_min(lq_twin[fin].abs(), 1.0)))
+        gap = ulps.max().item() if ulps.numel() else 0.0
+        worst_ulps = max(worst_ulps, gap)
+        require(gap <= PROPOSE_ULPS, f"K4 {name}: log q within {PROPOSE_ULPS} ulps ({gap})")
+        moves = torch.bincount(batch.move.flatten(), minlength=3).tolist()
+        log(f"[K4] {name} ({chains} x {SLICE_TREES} trees, N={n}): every field the twin's, "
+            f"log q within {gap:.1f} ulps; moves grow/prune/change {moves}, rejects "
+            f"{torch.isinf(lq).float().mean().item():.3f}")
+
+        # (c) times: the kernel's device and call time, the twin's call
+        packed0 = sampler.pack_forest(state.forest)
+        args = (packed0, *noise[:6], bounds, ft, X, state.leaves, params.proposal_weights,
+                params.alpha, params.beta, params.max_depth)
+        dev_ms, _, _, source = kernel_time(torch, lambda: propose_batch_cuda(*args),
+                                           "propose_kernel", 1)
+        call = call_ms(torch, lambda: propose_batch_cuda(*args))
+        plain = call_ms(torch, lambda: sampler._propose_torch(packed0, noise, state.leaves, X, ft,
+                                                              bounds, params),
+                        reps=5, inner=2, warmup=1)
+        bound_ms, bound_by = k4_bound(chains, SLICE_TREES, params.node_limit, n, X.shape[1])
+        times[name] = {"device_ms": dev_ms, "device_source": source, "call_ms": call,
+                       "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "share_of_bound": bound_ms / dev_ms}
+        log(f"[K4] {name}: device {dev_ms:.5f} ms ({source}), call {call:.5f}, plain (the "
+            f"twin) {plain:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{100 * bound_ms / dev_ms:.2f}% of it, on {smi}")
+
+    # (b) the main path: one launch a step, none in the init
+    state, X, ft, bounds, params, _ = propose_case(torch, dev, SLICE_CHAINS, 50, "cont", steps=0)
+    y = torch.sin(6.0 * X[:, 0])
+    y = (y - y.mean()) / y.std()
+    before = propose_batch_cuda.launches
+    run = sampler.run_chain(torch.Generator(device=dev).manual_seed(3), sampler.BARKModel(
+        state.forest, state.noise, state.scale), X, y, bounds, ft,
+        params.with_(warmup_steps=0, num_samples=10, steps_per_sample=5))
+    torch.cuda.synchronize()
+    launches = propose_batch_cuda.launches - before
+    require(launches == 50, f"K4 once a step on run_chain: {launches} in 50 steps")
+    log(f"[K4] run_chain N=50, 64 chains, 50 steps: {launches} launches, tree accept rate "
+        f"{run.tree_accept_rate.mean().item():.3f}")
+    log(f"[phase 18] {time.perf_counter() - t_phase:.1f} s")
+    return {"run_chain N=50": launches}, worst_ulps, times
+
+
 def main() -> int:
     import torch
 
@@ -4059,6 +4179,8 @@ def main() -> int:
         (k1_times if kernel == "gram" else k2_times)[name] = t
     # --- 17. the dense move scan as one kernel ------------------------------------
     k3_launches, k3_err, k3_times = phase_move_scan(torch, dev, smi, tf)
+    # --- 18. the proposal batch as one kernel -------------------------------------
+    k4_launches, k4_ulps, k4_times = phase_propose(torch, dev, smi)
 
     k1 = k1_times[f"({SLICE_CHAINS},50,50)"]
     k2 = k2_times["(128,50,50)"]
@@ -4088,6 +4210,10 @@ def main() -> int:
          "replaces": None, "launches": k3_launches["run_chain N=50"],
          "launches_by_path": k3_launches, "max_abs_err": k3_err,
          "ms": k3_times[f"({SLICE_CHAINS},50)"]["device_ms"], "times": k3_times},
+        {"name": "propose", "route": "cuda", "source": "bark_tpu_torch/csrc/propose.cu",
+         "replaces": None, "launches": k4_launches["run_chain N=50"],
+         "launches_by_path": k4_launches, "max_log_q_ulps": k4_ulps,
+         "ms": k4_times["mcmc.treefn5.n50"]["device_ms"], "times": k4_times},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
