@@ -56,16 +56,15 @@ class SamplerParams:
     #     moved tree's leaf indicators, the original BARK algorithm);
     #   subspace_mode: "walk" (the chosen node's subspace by its parent
     #     chain) or "carry" (every node's subspace kept in the state);
-    #   hot_style: the proposal batch's lowering, "walk_select", "scatter",
-    #     "select" or "doubling" (the same proposals bit for bit);
     #   refresh_style: "auto", "pair", "batched", "onesolve", "factor" or
     #     "leaf" (factor and leaf need the coeff scan);
     #   scan_style: "auto", "plain", "aug", "lowrank" or "coeff";
     #   leaf_budget: the leaf tier's slot count R (0: by padded N).
-    # scan_unroll, chol_block, chol_impl and gram_dtype choose among the
-    # reference's XLA lowerings of the same arithmetic; they are validated
-    # and not read (K1's counts are exact for either one-hot dtype, K2
-    # factors any block, the move loop is a Python loop).
+    # hot_style, scan_unroll, chol_block, chol_impl and gram_dtype choose
+    # among the reference's XLA lowerings of the same arithmetic; they are
+    # validated and not read (the proposal batch has one form, K1's counts
+    # are exact for either one-hot dtype, K2 factors any block, the move
+    # loop is a Python loop).
     kernel_backend: str = "rank1"
     subspace_mode: str = "walk"
     hot_style: str = "walk_select"

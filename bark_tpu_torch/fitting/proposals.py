@@ -5,19 +5,11 @@ of trees at once (the sampler passes chains x trees). All the randomness a
 proposal consumes is pre-drawn in a :class:`ProposalNoise`, so the same
 noise gives the same proposal in both packages.
 
-``SamplerParams.hot_style`` picks the lowering, and every one gives the
-same proposals bit for bit:
-
-  - ``walk_select`` (default): the chosen node's subspace by the packed
-    walk (:func:`~bark_tpu_torch.fitting.traversal.node_subspace_packed`),
-    reads by gathers, the tree edits as indexed row writes;
-  - ``scatter``: the walk on the unpacked fields with scatter writes
-    (:func:`~bark_tpu_torch.fitting.traversal.node_subspace_scatter`);
-  - ``select``: the packed walk, and the feature reads, the free-slot
-    search and the tree edits as one-hot selects (``torch.where`` against
-    an index range) instead of indexed reads and writes;
-  - ``doubling``: the subspace by pointer doubling
-    (:func:`~bark_tpu_torch.fitting.traversal.node_subspace_doubling`).
+The chosen node's subspace comes from the packed walk
+(:func:`~bark_tpu_torch.fitting.traversal.node_subspace_packed`), the
+reads are gathers and the tree edits indexed row writes. The reference's
+``SamplerParams.hot_style`` chooses among XLA lowerings of these same
+proposals, bit for bit the same; the port accepts it and does not read it.
 
 Given a subspace tree (``subspace_mode="carry"``), the subspace is one
 gather from it instead of a walk, and the proposal returns the tree with
@@ -39,9 +31,7 @@ from bark_tpu_torch.fitting.bits import popcount, scatter_bits
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.traversal import (
     child_subspaces,
-    node_subspace_doubling,
     node_subspace_packed,
-    node_subspace_scatter,
     singly_internal_mask,
     terminal_mask,
 )
@@ -154,19 +144,6 @@ def _first_two_inactive(
     return i1, i2, has_two
 
 
-def _first_two_inactive_select(
-    active: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`_first_two_inactive` without a scatter (``hot_style="select"``):
-    the second slot is the first inactive one that is not the first."""
-    inactive = ~active
-    iota = torch.arange(active.shape[-1], device=active.device)
-    i1 = torch.argmax(inactive.to(torch.int32), dim=-1)
-    i2 = torch.argmax((inactive & (iota != i1[..., None])).to(torch.int32), dim=-1)
-    has_two = inactive.sum(-1) >= 2
-    return i1, i2, has_two
-
-
 def _log_f32(x: float) -> torch.Tensor:
     return torch.log(torch.tensor(x, dtype=torch.float32))
 
@@ -184,8 +161,7 @@ def propose_tree_packed(
     ``packed`` is ``(B, node_limit, 8)`` int32 and ``noise`` fields have
     leading dim B. Returns ``(new_packed, log_q_prior, move, node)`` with
     ``log_q_prior = log q-ratio + log depth-prior-ratio`` (-inf on
-    rejection, in which case the tree is returned unchanged). The lowering
-    follows ``params.hot_style`` (see the module docstring).
+    rejection, in which case the tree is returned unchanged).
 
     With ``subspace_tree`` (B, node_limit, D, 2), every node's subspace,
     the chosen node's is read from it, and the return is ``(new_packed,
@@ -194,9 +170,8 @@ def propose_tree_packed(
     rejected proposal leaves the tree as it was (a pruned child's row is
     never read again).
     """
-    b, node_limit, _ = packed.shape
     device = packed.device
-    rows = torch.arange(b, device=device)
+    rows = torch.arange(packed.shape[0], device=device)
     tree = unpack_forest(packed)
 
     weights = torch.tensor(params.proposal_weights, dtype=torch.float32, device=device)
@@ -212,29 +187,16 @@ def propose_tree_packed(
     n_valid = valid.sum(-1)
     n = masked_choice_gumbel(noise.g_node, valid)
 
-    select_edit = params.hot_style == "select"
     if subspace_tree is not None:
         subspace = subspace_tree[rows, n]
-    elif params.hot_style == "doubling":
-        subspace = node_subspace_doubling(packed, n, bounds, feat_types, params.max_depth)
-    elif params.hot_style == "scatter":
-        subspace = node_subspace_scatter(
-            tree, n[:, None], bounds, feat_types, params.max_depth
-        )[:, 0]
     else:
         subspace = node_subspace_packed(packed, n, bounds, feat_types, params.max_depth)
 
     d = bounds.shape[0]
     feat = torch.clamp_max((noise.u_feat * d).to(torch.int32), d - 1).long()
-    if select_edit:
-        onehot_d = torch.arange(d, device=device) == feat[:, None]
-        lb = torch.where(onehot_d, subspace[..., 0], 0.0).sum(-1)
-        ub = torch.where(onehot_d, subspace[..., 1], 0.0).sum(-1)
-        ftype = torch.where(onehot_d, feat_types, 0).sum(-1)
-    else:
-        lb = subspace[rows, feat, 0]
-        ub = subspace[rows, feat, 1]
-        ftype = feat_types[feat]
+    lb = subspace[rows, feat, 0]
+    ub = subspace[rows, feat, 1]
+    ftype = feat_types[feat]
     thr = _sample_split_from_bounds(noise, lb, ub, ftype)
 
     invalid_split = ((ftype == FEAT_CAT) & (thr == 0)) | (
@@ -244,8 +206,7 @@ def propose_tree_packed(
     row_n = packed[rows, n]  # (B, 8)
     parent_n, depth_n = row_n[:, 5], row_n[:, 6]
     l, r = row_n[:, 3].long(), row_n[:, 4].long()
-    first_two = _first_two_inactive_select if select_edit else _first_two_inactive
-    i1, i2, has_two = first_two(tree.active)
+    i1, i2, has_two = _first_two_inactive(tree.active)
     depth_ok = depth_n + 1 <= params.max_depth
 
     reject = (
@@ -257,12 +218,7 @@ def propose_tree_packed(
     # --- transition ratio ----------------------------------------------------
     w0 = term.to(torch.float32).sum(-1)
     w1 = si.to(torch.float32).sum(-1)
-    if select_edit:
-        iota = torch.arange(node_limit, device=device)
-        parent_si = ((iota == parent_n[:, None]) & si).any(-1)
-    else:
-        parent_si = si[rows, parent_n.long()]
-    parent_was_si = (n != 0) & parent_si
+    parent_was_si = (n != 0) & si[rows, parent_n.long()]
     w1_star = w1 + 1.0 - parent_was_si.to(torch.float32)
     grow_q = torch.log(w0) - torch.log(w1_star)
     prune_q = torch.log(w1) - torch.log(torch.clamp_min(w0 - 1.0, 1.0))
@@ -291,28 +247,17 @@ def propose_tree_packed(
          i2.to(torch.int32), parent_n, depth_n, one],
         -1,
     )
-    if select_edit:
-        node_at = lambda i: (iota == i[:, None])[..., None]  # noqa: E731
-        col = torch.arange(8, device=device)
-        is_n = node_at(n)
-        grown = torch.where(node_at(i1) | node_at(i2), child_row[:, None], packed)
-        grown = torch.where(is_n, parent_row[:, None], grown)
-        pruned = torch.where((node_at(l) | node_at(r)) & (col == 7), 0, packed)
-        pruned = torch.where(is_n & (col == 0), 1, pruned)
-        changed = torch.where(is_n & (col == 1), feat.to(torch.int32)[:, None, None], packed)
-        changed = torch.where(is_n & (col == 2), thr_bits[:, None, None], changed)
-    else:
-        grown = packed.clone()
-        grown[rows, i1] = child_row
-        grown[rows, i2] = child_row
-        grown[rows, n] = parent_row
-        pruned = packed.clone()
-        pruned[rows, l, 7] = 0
-        pruned[rows, r, 7] = 0
-        pruned[rows, n, 0] = 1
-        changed = packed.clone()
-        changed[rows, n, 1] = feat.to(torch.int32)
-        changed[rows, n, 2] = thr_bits
+    grown = packed.clone()
+    grown[rows, i1] = child_row
+    grown[rows, i2] = child_row
+    grown[rows, n] = parent_row
+    pruned = packed.clone()
+    pruned[rows, l, 7] = 0
+    pruned[rows, r, 7] = 0
+    pruned[rows, n, 0] = 1
+    changed = packed.clone()
+    changed[rows, n, 1] = feat.to(torch.int32)
+    changed[rows, n, 2] = thr_bits
 
     sel = lambda mask: mask[:, None, None]  # noqa: E731
     proposed = torch.where(

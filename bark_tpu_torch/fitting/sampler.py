@@ -37,20 +37,21 @@ indicators of the tree before and after the move (L = node_limit // 2),
 each through a Cholesky of the (L, L) capacitance, with the MLL from K^-1
 per move, and a full rebuild of K at the noise move.
 
-On the proposal side, ``hot_style`` picks the lowering of the proposal
-batch (:mod:`.proposals`) and ``subspace_mode="carry"`` keeps every node's
+On the proposal side, ``subspace_mode="carry"`` keeps every node's
 subspace in the state (``ChainState.subspaces``) instead of walking the
-parent chain; all give the same proposals bit for bit.
+parent chain (:mod:`.proposals`); both give the same proposals bit for
+bit.
 
 Every factorization goes through the Cholesky-with-inverse kernel K2
 (``ops.chol``, through ``ops.linalg.blocked_cholesky``/``chol_inv``), and
 every Gram through the agreement kernel K1 (``ops.gram``); on the card the
 plain move scan is one launch of the scan kernel K3 (``ops.scan``) and the
 walk's proposal batch one launch of K4 (``ops.propose``). The
-reference's ``gram_dtype``, ``chol_block``, ``chol_impl`` and
-``scan_unroll`` choose among XLA lowerings of the same arithmetic; they are
-accepted and not read here: K1's counts are exact whatever the one-hot
-dtype, K2 factors any block, and the move loop is a Python loop or K3.
+reference's ``hot_style``, ``gram_dtype``, ``chol_block``, ``chol_impl``
+and ``scan_unroll`` choose among XLA lowerings of the same arithmetic;
+they are accepted and not read here: the proposal batch has one form, K1's
+counts are exact whatever the one-hot dtype, K2 factors any block, and the
+move loop is a Python loop or K3.
 
 Every tensor carries a leading chain dimension (the reference ``vmap``-ed
 over chains) and the sequential move scan is a Python loop over the m

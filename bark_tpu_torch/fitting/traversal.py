@@ -1,12 +1,10 @@
 """Fixed-shape tree traversal: node masks and node subspaces.
 
 Counterpart of ``bark_tpu/fitting/traversal.py``, batched over any leading
-dims (chains x trees). The chosen node's subspace has one lowering per
-proposal ``hot_style``: the packed walk (``walk_select`` and ``select``),
-the walk on unpacked fields with scatter writes (``scatter``) and pointer
-doubling with an order-independent reduction (``doubling``); all are
-bit-identical. ``subspace_mode="carry"`` starts from
-:func:`all_node_subspaces` and keeps it current with
+dims (chains x trees). A proposal's chosen node takes its subspace from
+the packed walk (:func:`node_subspace_packed`); ``subspace_mode="carry"``
+starts from :func:`all_node_subspaces` (the walk on unpacked fields with
+scatter writes, bit-identical) and keeps it current with
 :func:`child_subspaces`.
 """
 
@@ -137,76 +135,6 @@ def node_subspace_scatter(
     return torch.stack([lower, upper], dim=-1)
 
 
-def node_subspace_doubling(
-    packed: torch.Tensor,
-    node_idx: torch.Tensor,
-    bounds: torch.Tensor,
-    feat_types: torch.Tensor,
-    max_depth: int,
-) -> torch.Tensor:
-    """:func:`node_subspace_packed` by pointer doubling (``hot_style="doubling"``).
-
-    The walk's intersections do not depend on their order (min over the
-    thresholds of left ancestors, max over those of right ancestors, AND of
-    the category masks with the complement taken against the domain's
-    power-of-two ceiling, which is exact since ``(M - thr) & U == U & ~thr``
-    for any ``M`` covering ``U``). So the ancestor chain of ``max_depth``
-    nodes comes from log2(max_depth) doubling gathers, and every ancestor's
-    contribution is reduced at once. ``packed`` (B, node_limit, 8), nodes
-    (B,); returns (B, D, 2), bit-identical with the walk.
-    """
-    b, nl, _ = packed.shape
-    device = packed.device
-    d = bounds.shape[0]
-    parent = packed[..., 5].long()
-    parent = torch.where(torch.arange(nl, device=device) == 0, 0, parent)
-
-    # chain[:, i] = parent^i(node): a chain of length L extends to 2L by one
-    # gather through parent^L
-    chain = node_idx.long()[:, None]
-    P = parent
-    length = 1
-    while length < max_depth:
-        chain = torch.cat([chain, torch.gather(P, 1, chain)], 1)
-        if 2 * length < max_depth:
-            P = torch.gather(P, 1, P)
-        length *= 2
-    chain = chain[:, :max_depth]
-
-    anc, prev = chain[:, 1:], chain[:, :-1]  # ancestors and their on-path child
-    valid = prev != 0  # nothing contributes once the path is at the root
-    rows = torch.gather(packed, 1, anc[..., None].expand(-1, -1, 8))  # (B, depth-1, 8)
-    thr = rows[..., 2].contiguous().view(torch.float32)
-    is_left = (prev == rows[..., 3])[..., None]
-    contrib = (rows[..., 1:2] == torch.arange(d, device=device)) & valid[..., None]
-
-    lower, upper = bounds[:, 0], bounds[:, 1]
-    inf = upper.new_full((), torch.inf)  # a fill on the device, no copy from the host
-    ub_cand = torch.where(contrib & is_left, thr[..., None], inf)
-    num_ub = torch.minimum(upper, ub_cand.amin(1))
-    int_delta = (feat_types == FEAT_INT).to(lower.dtype)
-    lb_cand = torch.where(contrib & ~is_left, thr[..., None] + int_delta, -inf)
-    num_lb = torch.maximum(lower, lb_cand.amax(1))
-
-    ceiling = next_power_of_2(upper.to(torch.int32)) - 1  # (D,)
-    thr_i = thr.to(torch.int32)[..., None]
-    cat_c = torch.where(is_left, thr_i, ceiling - thr_i)
-    cat_c = torch.where(contrib, cat_c, -1)  # -1 is AND's identity
-    # the AND in log2 halvings, padded to a power of two with -1
-    rows_n = cat_c.shape[1]
-    pow2 = 1 << (rows_n - 1).bit_length()
-    cat_c = torch.cat([cat_c, cat_c.new_full((b, pow2 - rows_n, d), -1)], 1)
-    while cat_c.shape[1] > 1:
-        half = cat_c.shape[1] // 2
-        cat_c = cat_c[:, :half] & cat_c[:, half:]
-    cat_ub = (upper.to(torch.int32) & cat_c[:, 0]).to(upper.dtype)
-
-    is_cat = feat_types == FEAT_CAT
-    new_ub = torch.where(is_cat, cat_ub, num_ub)
-    new_lb = torch.where(is_cat, lower, num_lb)
-    return torch.stack([new_lb, new_ub], dim=-1)
-
-
 def child_subspaces(
     subspace: torch.Tensor,
     feat: torch.Tensor,
@@ -215,9 +143,11 @@ def child_subspaces(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Left and right child subspaces (B, D, 2) of nodes with subspaces
     ``subspace`` (B, D, 2) split by ``(feat, thr)`` (B,): one walk trip,
-    top-down. Bit-identical with the walk from the root (the categorical
-    complement identity of :func:`node_subspace_doubling`; min and max are
-    exact), which is what lets the sampler carry the subspaces."""
+    top-down. Bit-identical with the walk from the root, which is what lets
+    the sampler carry the subspaces: min and max are exact, and the
+    intersections do not depend on their order, since the categorical
+    complement ``(M - thr) & U == U & ~thr`` for any power-of-two ceiling
+    ``M`` covering ``U``."""
     rows = torch.arange(subspace.shape[0], device=subspace.device)
     feat = feat.long()
     lower, upper = subspace[..., 0], subspace[..., 1]

@@ -16,19 +16,18 @@ import dataclasses
 import importlib.util
 import json
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import REPO
 
 from bark_tpu.benchmarks.tree_function import TreeFunction as RefTreeFunction
 from bark_tpu.fitting.params import SamplerParams as RefSamplerParams
 
 from bark_tpu_torch.benchmarks import bench, bench_turns
 from bark_tpu_torch.fitting.sampler import run_bark_sampler
-
-REPO = Path(__file__).resolve().parents[1]
 
 
 def load_reference_bench():

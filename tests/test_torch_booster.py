@@ -8,13 +8,13 @@ is on the PATH, as the reference's own tests do.
 """
 
 import importlib.util
-import subprocess
-import sys
-from pathlib import Path
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import REPO, run_python
 
 import bark_tpu.domain as jdomain
 from bark_tpu import native as jnative
@@ -29,7 +29,6 @@ from bark_tpu_torch.fitting.booster import fit_booster_forest as tfit
 from bark_tpu_torch.fitting.booster import lgbm_dump_to_forest as tdump
 from bark_tpu_torch.forest import FOREST_FIELDS, route_forest
 
-REPO = Path(__file__).resolve().parents[1]
 needs_cxx = pytest.mark.skipif(not tnative.gbdt_available(), reason="no C++ compiler")
 
 
@@ -200,9 +199,8 @@ def test_concurrent_builds_leave_one_whole_library(tmp_path):
         "out = native.fit_gbdt(X, X[:, 0], np.array([2, 2]), np.zeros(2), num_rounds=3)\n"
         "print(int(out['active'].sum()))\n"
     )
-    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for _ in range(4)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    assert all(p.returncode == 0 for p in procs), [e[-2000:] for _, e in outs]
-    assert len({o.strip() for o, _ in outs}) == 1
+    with ThreadPoolExecutor(4) as pool:
+        procs = list(pool.map(lambda _: run_python(code, timeout=300), range(4)))
+    assert all(p.returncode == 0 for p in procs), [p.stderr[-2000:] for p in procs]
+    assert len({p.stdout.strip() for p in procs}) == 1
     assert [p.name for p in tmp_path.iterdir()] == [tnative.library_path().name]

@@ -24,7 +24,6 @@ import importlib.util
 import os
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +31,7 @@ import torch
 
 from test_torch_sampler import NOISE_FIELDS, make_problem
 from test_torch_sampler import _inputs as unpadded_inputs
+from torch_support import REPO, run_reference
 
 from bark_tpu_torch import convert
 from bark_tpu_torch.convert import chain_state_from_reference, to_numpy
@@ -53,7 +53,6 @@ from bark_tpu_torch.ops.gram import gram_plain
 from bark_tpu_torch.parallel.smc import run_smc
 from bark_tpu_torch.parallel.tempering import run_parallel_tempering
 
-REPO = Path(__file__).resolve().parents[1]
 M = 8
 CHAINS = 2
 NEAR_TIE = 1e-3
@@ -161,15 +160,7 @@ def reference_run(out_path: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "reference.npz")
 
 
 def _state(ref, case, tag):

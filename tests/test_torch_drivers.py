@@ -15,11 +15,12 @@ import importlib
 import importlib.util
 import json
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import REPO
 
 from bark_tpu.utils.diagnostics import mll_trace_summary as ref_mll_trace_summary
 
@@ -36,8 +37,6 @@ from bark_tpu_torch.benchmarks import (
     tempered_smc,
 )
 from bark_tpu_torch.benchmarks.study import EXAMPLE_CONFIGS
-
-REPO = Path(__file__).resolve().parents[1]
 
 
 def keys_of(tree):

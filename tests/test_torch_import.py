@@ -7,23 +7,16 @@ subprocesses so the suite's own JAX import cannot mask a stray one.
 
 import subprocess
 import sys
-from pathlib import Path
 
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
+from torch_support import REPO, run_python
+
 PORT = REPO / "bark_tpu_torch"
 
 
-def _run(code: str, cwd=REPO, timeout=120):
-    return subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        cwd=cwd, timeout=timeout,
-    )
-
-
 def test_port_imports_without_jax():
-    proc = _run(
+    proc = run_python(
         "import sys; sys.modules['jax'] = None\n"
         "import bark_tpu_torch.fitting.sampler, bark_tpu_torch.benchmarks.tree_function\n"
         "import bark_tpu_torch.convert, bark_tpu_torch.domain, bark_tpu_torch.ops.linalg\n"
@@ -55,7 +48,8 @@ def test_port_imports_without_jax():
         "import bark_tpu_torch.benchmarks.reaction_emulator, bark_tpu_torch.benchmarks.svr_bench\n"
         "import bark_tpu_torch.benchmarks.dataset, bark_tpu_torch.benchmarks.hpo\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
-        "print('ok')\n"
+        "print('ok')\n",
+        timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
 
@@ -65,7 +59,7 @@ def test_new_benchmarks_run_without_jax_sklearn_pandas_or_matplotlib():
     ToyReaction and CCOBench evaluate; SVRBench, XGBoostMNIST and
     DatasetBenchmark raise naming the package they need; the plots raise
     naming matplotlib and format_tree still works."""
-    proc = _run(
+    proc = run_python(
         "import sys\n"
         "for m in ('jax', 'sklearn', 'pandas', 'xgboost', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
@@ -95,7 +89,8 @@ def test_new_benchmarks_run_without_jax_sklearn_pandas_or_matplotlib():
         "    assert 'matplotlib' in str(e)\n"
         "else:\n"
         "    raise SystemExit('plotted without matplotlib')\n"
-        "print('ok')\n"
+        "print('ok')\n",
+        timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
 
@@ -174,7 +169,7 @@ def test_bo_script_runs_on_the_port_without_jax():
     """The documented BO flow with only the package name and ``device``
     changed, JAX unavailable: a few iterations on the CPU; without
     ``device`` and without a card it raises."""
-    proc = _run(
+    proc = run_python(
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
         "from bark_tpu_torch.benchmarks import map_benchmark\n"
@@ -198,7 +193,8 @@ def test_bo_script_runs_on_the_port_without_jax():
         "    c = s.ask(1); s.add(c, bench.f(c))\n"
         "assert len(s.y) == 11 and s.fallbacks == 0 and np.isfinite(s.y).all()\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
-        "print('ok')\n"
+        "print('ok')\n",
+        timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
 
@@ -207,7 +203,7 @@ def test_booster_surrogates_run_on_the_port_without_jax():
     """LeafGP's BO loop and one iteration of the multi-fidelity study on the
     CPU with JAX unavailable; without ``device`` and without a card the
     study raises."""
-    proc = _run(
+    proc = run_python(
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
         "from bark_tpu_torch.benchmarks import map_benchmark\n"
@@ -231,7 +227,8 @@ def test_booster_surrogates_run_on_the_port_without_jax():
         "    else:\n"
         "        raise SystemExit('no device asked for, no card, and no error')\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
-        "print('ok')\n"
+        "print('ok')\n",
+        timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
 
@@ -240,7 +237,7 @@ def test_study_runs_on_the_port_without_jax():
     """The BO-study and regression runners on the CPU with JAX (and PyYAML)
     unavailable, at a tiny size; without ``device`` and without a card the
     study raises."""
-    proc = _run(
+    proc = run_python(
         "import sys, tempfile; sys.modules['jax'] = None; sys.modules['yaml'] = None\n"
         "import torch\n"
         "from bark_tpu_torch.benchmarks.study import run_study\n"
@@ -261,6 +258,7 @@ def test_study_runs_on_the_port_without_jax():
         "    else:\n"
         "        raise SystemExit('no device asked for, no card, and no error')\n"
         "assert not any(m == 'bark_tpu' or m.startswith('bark_tpu.') for m in sys.modules)\n"
-        "print('ok')\n"
+        "print('ok')\n",
+        timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]

@@ -17,16 +17,14 @@ atol 1e-4, and padded against unpadded rtol 1e-4 / atol 1e-5 (the
 reference's).
 """
 
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from test_torch_gp import CHAINS, SAMPLES, mixed_domain, prior_model
+from torch_support import run_reference
 
 from bark_tpu_torch.benchmarks import map_benchmark
 from bark_tpu_torch.fitting.params import SamplerParams
@@ -37,7 +35,6 @@ from bark_tpu_torch.ops import iterative
 from bark_tpu_torch.ops.gram import gram_plain
 from bark_tpu_torch.ops.linalg import JITTER
 
-REPO = Path(__file__).resolve().parents[1]
 NODE_LIMIT = 16
 S = CHAINS * SAMPLES  # posterior samples of the forest_predict_cg case
 
@@ -109,15 +106,7 @@ def reference_run(out_path: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "reference.npz")
 
 
 @pytest.fixture(scope="module")

@@ -37,16 +37,14 @@ coeff + leaf, and through a PT round, an SMC round and a checkpoint round
 trip under ``subspace_mode="carry"``.
 """
 
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from test_torch_sampler import NOISE_FIELDS, make_problem
+from torch_support import run_reference
 
 from bark_tpu_torch.convert import chain_state_from_reference, forest_from_reference
 from bark_tpu_torch.fitting.params import SamplerParams
@@ -74,7 +72,6 @@ from bark_tpu_torch.forest import (
 )
 from bark_tpu_torch.ops.linalg import JITTER, chol_inv_logdet, kernel_matrix
 
-REPO = Path(__file__).resolve().parents[1]
 M, C, N, STEPS = 6, 2, 20, 3
 N_REAL, N_PAD = 16, 8
 NEAR_TIE = 1e-3
@@ -341,17 +338,11 @@ def reference_run(out_path: str, workers: int = 6) -> None:
         for part in pending.get():
             out.update(part)
     np.savez(out_path, **out)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "lowerings.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "lowerings.npz")
 
 
 def _inputs(name, dtype=torch.float32):

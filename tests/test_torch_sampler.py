@@ -32,14 +32,13 @@ at N=256 (budget R=128 at m=8), and pinned with ``leaf_budget = m + 2``
 from stumps, where the capacity guard rejects grows at every step.
 """
 
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import run_reference
 
 from bark_tpu_torch.convert import chain_state_from_reference, forest_from_reference
 from bark_tpu_torch.fitting.params import SamplerParams
@@ -59,7 +58,6 @@ from bark_tpu_torch.fitting.sampler import (
 from bark_tpu_torch.forest import FOREST_FIELDS, gram_from_leaves, route_forest
 from bark_tpu_torch.ops.linalg import JITTER, chol_inv_logdet, kernel_matrix
 
-REPO = Path(__file__).resolve().parents[1]
 NUM_TREES = 8
 NUM_CHAINS = 2
 NEAR_TIE = 1e-3
@@ -186,15 +184,7 @@ def reference_run(out_path: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "reference.npz")
 
 
 def _state_dict(ref, case, tag):

@@ -24,14 +24,13 @@ What is held, and how:
     mirrored on the port's own draws.
 """
 
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import run_reference
 
 from bark_tpu_torch.benchmarks import map_benchmark
 from bark_tpu_torch.benchmarks.tree_function import TreeFunction
@@ -49,7 +48,6 @@ from bark_tpu_torch.models.sampling import (
 )
 from bark_tpu_torch.models.surrogate import BARKSurrogate
 
-REPO = Path(__file__).resolve().parents[1]
 M, NODE_LIMIT, DEPTH = 10, 32, 8
 R = M * ((NODE_LIMIT + 1) // 2)
 DRAWS, FSTAR = 64, 512
@@ -127,15 +125,7 @@ def reference_run(out_path: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "reference.npz")
 
 
 @pytest.fixture(scope="module")

@@ -25,16 +25,14 @@ log-evidence rtol 1e-5, ancestors exact unless a cumulative weight lies
 within 1e-6 of a resample position (reported).
 """
 
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from test_torch_sampler import NOISE_FIELDS, _assert_close_state, _inputs, make_problem
+from torch_support import run_reference
 
 from bark_tpu_torch.convert import chain_state_from_reference, to_numpy
 from bark_tpu_torch.domain import CategoricalInput, ContinuousInput, Domain, IntegerInput
@@ -65,7 +63,6 @@ from bark_tpu_torch.parallel.tempering import (
     swap_move,
 )
 
-REPO = Path(__file__).resolve().parents[1]
 M = 8
 N = 20
 NEAR_TIE = 1e-3
@@ -261,15 +258,7 @@ def reference_run(out_path: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("reference") / "reference.npz"
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
-    env.pop("JAX_ENABLE_X64", None)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), str(out)],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return dict(np.load(out))
+    return run_reference(__file__, tmp_path_factory.mktemp("reference"), "reference.npz")
 
 
 def _state(ref, tag):

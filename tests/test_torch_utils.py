@@ -1,13 +1,17 @@
 """The port's profiling hooks and plots (``utils/profiling.py``,
-``utils/plots.py``) on the CPU, and ``format_tree`` against the JAX
-package's: the same text for the same forest, tree by tree."""
+``utils/plots.py``) on the CPU, ``format_tree`` against the JAX
+package's: the same text for the same forest, tree by tree, and the port's
+shared test set-up (``tests/torch_support.py``)."""
 
 import json
+import os
 import sys
 
 import numpy as np
 import pytest
 import torch
+
+from torch_support import run_reference
 
 from bark_tpu_torch.fitting.params import SamplerParams
 from bark_tpu_torch.fitting.prior import draw_prior, sample_forest_prior
@@ -78,3 +82,19 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     assert "square" in names
     assert any(e.key == "square" for e in prof.key_averages())
 
+
+@pytest.mark.skipif("PYTEST_XDIST_WORKER_COUNT" not in os.environ,
+                    reason="the thread cap applies under pytest-xdist only")
+def test_xdist_worker_caps_torch_threads():
+    """A worker's torch, and every process it starts, gets the cores this
+    process may run on divided by the number of workers."""
+    cap = max(1, len(os.sched_getaffinity(0)) // int(os.environ["PYTEST_XDIST_WORKER_COUNT"]))
+    assert torch.get_num_threads() == cap
+    assert os.environ["OMP_NUM_THREADS"] == str(cap)
+
+
+def test_run_reference_fails_with_the_scripts_stderr(tmp_path):
+    script = tmp_path / "broken_reference.py"
+    script.write_text("import sys\nsys.exit('the reference script broke')\n")
+    with pytest.raises(AssertionError, match="the reference script broke"):
+        run_reference(script, tmp_path, "never_written.npz")
